@@ -1,0 +1,604 @@
+"""ONNX graph -> PyTorch function: the port of ``birda_tpu/onnx/lowering.py``.
+
+A parsed :class:`~birda_tpu.onnx.proto.Model` runs node by node over an
+environment of values, the same design as the JAX evaluator:
+
+- Host constants stay numpy. A node whose inputs are all host values is
+  folded on the host with numpy (shape, slice and reshape parameters stay
+  plain integers), exactly as the JAX evaluator folds them.
+- Device values are ``torch.Tensor``s on the device the graph input lives
+  on. Host operands of a device op are copied to that device once and
+  cached.
+- ``compute_dtype=torch.bfloat16`` casts matmul/conv operands to bf16,
+  accumulates in fp32 and materializes their outputs at bf16 (the JAX
+  ``_mm_cast``/``_mm_out`` recipe); ``None`` is the fp32 route, run with
+  TF32 off for cuDNN convolutions and cuBLAS matmuls (the GPU form of the
+  JAX route's HIGHEST matmul precision).
+- Elementwise ops promote like ``jax.numpy``: a 0-d float32 constant
+  promotes a bf16 tensor to float32 (``torch.promote_types`` on both
+  dtypes), Python scalars stay weak.
+
+The op set is what the full-scale BirdNET v2.4 / v3.0 graphs
+(``birda_tpu.onnx.fullscale``) emit, plus the fused spectrogram front-end
+``BirdaFusedMelFrontend`` that :func:`maybe_fuse_frontend` splices in for
+bf16 compute; it runs through the hand-written CUDA kernel
+(``ops/stft_conv.py::fused_logmel``). A graph outside the op set fails at
+load with the full list (``preflight_or_raise``).
+"""
+
+from __future__ import annotations
+
+from contextlib import contextmanager
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from birda_tpu.onnx.lowering import (
+    LIFT_PARAM_BYTES,
+    UnsupportedOnnxOp,
+    _autopad_amounts,
+    _constant_payload,
+)
+from birda_tpu.onnx.proto import Model, load_model
+
+from ..ops import stft_conv
+
+__all__ = ["OnnxFunction", "UnsupportedOnnxOp", "lower",
+           "maybe_fuse_frontend"]
+
+
+def _is_host(x) -> bool:
+    return isinstance(x, (np.ndarray, np.generic, int, float, bool))
+
+
+def _host_array(x) -> np.ndarray:
+    """A host value as the array jax would make of it (x64 off: float64
+    becomes float32)."""
+    a = np.asarray(x)
+    if a.dtype == np.float64:
+        a = a.astype(np.float32)
+    return np.require(a, requirements=["C", "W"])
+
+
+def _device_of(*xs) -> torch.device:
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            return x.device
+    raise ValueError("no tensor operand")
+
+
+@contextmanager
+def _full_precision():
+    """fp32 products in full fp32 (no TF32) and bf16 products with fp32
+    reductions, for the length of one graph run; restores the caller's
+    settings."""
+    cudnn, mm = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.allow_tf32, mm.allow_tf32,
+             mm.allow_bf16_reduced_precision_reduction)
+    cudnn.allow_tf32 = False
+    mm.allow_tf32 = False
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        (cudnn.allow_tf32, mm.allow_tf32,
+         mm.allow_bf16_reduced_precision_reduction) = saved
+
+
+class _Evaluator:
+    """Executes a graph node by node over a value environment."""
+
+    def __init__(self, graph, compute_dtype=None, opset: int = 0):
+        self.graph = graph
+        self.opset = opset
+        #: torch.bfloat16 for mixed precision, None for the fp32 route.
+        self.compute_dtype = compute_dtype
+        self.const: dict[str, np.ndarray] = {
+            name: t.array for name, t in graph.initializers.items()
+            if t.array is not None
+        }
+        for node in graph.nodes:
+            if node.op_type == "Constant" and node.outputs:
+                v = _constant_payload(node)
+                if v is not None:
+                    self.const[node.outputs[0]] = v
+        #: Device copies of persistent host arrays: (id, device) -> (array,
+        #: tensor); the array is held so its id cannot be reused.
+        self._device_copies: dict[tuple, tuple[Any, torch.Tensor]] = {}
+        #: ids of host arrays that live across runs (constants, params and
+        #: the folded BatchNormalization factors).
+        self._persistent: set[int] = set()
+        #: Folded BatchNormalization (inv, shift) by node name.
+        self._bn_folds: dict[str, tuple] = {}
+        #: Fused front-end kernel layouts: (id(w), id(fb)) -> (w, fb, layout).
+        self._logmel_layouts: dict[tuple, tuple] = {}
+
+    # -- execution ----------------------------------------------------------
+
+    def run(self, feeds: dict[str, Any]) -> dict[str, Any]:
+        env: dict[str, Any] = dict(self.const)
+        env.update(feeds)
+        self._persistent.update(
+            id(v) for v in env.values() if isinstance(v, np.ndarray))
+        env[""] = None
+        with _full_precision():
+            for node in self.graph.nodes:
+                if node.op_type == "Constant":
+                    continue
+                handler = getattr(self, f"op_{node.op_type}", None)
+                if handler is None:
+                    raise UnsupportedOnnxOp(
+                        f"ONNX op '{node.op_type}' (node '{node.name}') "
+                        "is not supported")
+                args = [
+                    self._fetch(node, pos, i, env[i]) if i else None
+                    for pos, i in enumerate(node.inputs)
+                ]
+                result = handler(node, *args)
+                if not isinstance(result, tuple):
+                    result = (result,)
+                for out_name, val in zip(node.outputs, result):
+                    if out_name:
+                        env[out_name] = self._store(out_name, val)
+        return env
+
+    def _store(self, name, val):
+        """Hook over every value entering the environment."""
+        return val
+
+    def _fetch(self, node, pos, name, val):
+        """Hook over every value leaving the environment for a node input."""
+        return val
+
+    # -- host/device plumbing -----------------------------------------------
+
+    def _tensor(self, x, device: torch.device, dtype=None) -> torch.Tensor:
+        """``x`` as a tensor on ``device`` (at ``dtype`` when given);
+        persistent host arrays are copied once per device and dtype."""
+        if isinstance(x, torch.Tensor):
+            return x.to(device, dtype)
+        key = (id(x), device, dtype)
+        hit = self._device_copies.get(key)
+        if hit is not None and hit[0] is x:
+            return hit[1]
+        t = torch.from_numpy(_host_array(x)).to(device, dtype)
+        if id(x) in self._persistent:
+            self._device_copies[key] = (x, t)
+        return t
+
+    def _operand(self, x, device):
+        """Elementwise operand: Python scalars stay weak (like jnp)."""
+        if isinstance(x, (int, float, bool)):
+            return x
+        return self._tensor(x, device)
+
+    def _binary(self, np_fn, torch_fn, a, b):
+        if _is_host(a) and _is_host(b):
+            return np_fn(a, b)
+        dev = _device_of(a, b)
+        a, b = self._operand(a, dev), self._operand(b, dev)
+        if (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                and a.dtype != b.dtype and 0 in (a.dim(), b.dim())):
+            # torch lets a 0-d tensor take the other operand's dtype
+            # category; jax.numpy promotes on the dtypes alone.
+            dt = torch.promote_types(a.dtype, b.dtype)
+            a, b = a.to(dt), b.to(dt)
+        return torch_fn(a, b)
+
+    def _mm_cast(self, device, *xs):
+        """Matmul/conv operands as tensors on ``device``, float operands at
+        the compute dtype."""
+        out = []
+        for x in xs:
+            floating = (x.is_floating_point() if isinstance(x, torch.Tensor)
+                        else np.asarray(x).dtype.kind == "f")
+            out.append(self._tensor(
+                x, device, self.compute_dtype if floating else None))
+        return out
+
+    def _contract(self, fn, *xs) -> torch.Tensor:
+        """Run a matmul/conv ``fn`` with fp32 accumulation. On the card the
+        bf16 operands go to the tensor cores, which accumulate in fp32 and
+        round the result to bf16 once, as ``_mm_out`` would; on the CPU the
+        bf16-rounded operands are multiplied in fp32, the same
+        arithmetic."""
+        if self.compute_dtype is not None and xs[0].device.type == "cpu":
+            return fn(*(x.float() for x in xs))
+        return fn(*xs)
+
+    def _mm_out(self, out):
+        """Materialize matmul/conv outputs at the compute dtype."""
+        if self.compute_dtype is None or _is_host(out):
+            return out
+        return out.to(self.compute_dtype)
+
+    # -- elementwise --------------------------------------------------------
+
+    def op_Add(self, node, a, b):
+        return self._binary(np.add, torch.add, a, b)
+
+    def op_Sub(self, node, a, b):
+        return self._binary(np.subtract, torch.sub, a, b)
+
+    def op_Mul(self, node, a, b):
+        return self._binary(np.multiply, torch.mul, a, b)
+
+    def op_Div(self, node, a, b):
+        if _is_host(a) and _is_host(b):
+            res = np.divide(a, b)
+            # ONNX integer Div truncates toward zero.
+            if np.asarray(a).dtype.kind in "iu" and \
+                    np.asarray(b).dtype.kind in "iu":
+                res = (np.sign(res) * np.floor(np.abs(res))).astype(
+                    np.asarray(a).dtype)
+            return res
+        return self._binary(np.divide, torch.div, a, b)
+
+    def op_Sqrt(self, node, x):
+        return np.sqrt(x) if _is_host(x) else torch.sqrt(x)
+
+    def op_Log(self, node, x):
+        return np.log(x) if _is_host(x) else torch.log(x)
+
+    def op_Sigmoid(self, node, x):
+        if _is_host(x):
+            z = np.asarray(x).astype(np.float64)
+            return (1.0 / (1.0 + np.exp(-z))).astype(np.float32)
+        return torch.sigmoid(x)
+
+    # -- shape / structure ---------------------------------------------------
+
+    def op_Flatten(self, node, x):
+        axis = node.attr("axis", 1)
+        lead = int(np.prod(x.shape[:axis])) if axis > 0 else 1
+        return x.reshape(lead, -1)
+
+    def op_Transpose(self, node, x):
+        perm = node.attr("perm")
+        if _is_host(x):
+            return np.transpose(x, perm)
+        return x.permute(*(perm or reversed(range(x.ndim))))
+
+    def op_Unsqueeze(self, node, x, axes=None):
+        if axes is None:
+            axes = node.attr("axes")
+        axes = sorted(int(a) for a in np.asarray(axes).reshape(-1))
+        nd = np.ndim(x) + len(axes)
+        out = x
+        for a in axes:
+            a = a % nd if a < 0 else a
+            out = np.expand_dims(out, a) if _is_host(out) else out.unsqueeze(a)
+        return out
+
+    def op_Concat(self, node, *xs):
+        axis = node.attr("axis")
+        xs = [x for x in xs if x is not None]
+        if all(_is_host(x) for x in xs):
+            return np.concatenate(xs, axis=axis)
+        dev = _device_of(*xs)
+        ts = [self._tensor(x, dev) for x in xs]
+        dt = ts[0].dtype
+        for t in ts[1:]:
+            dt = torch.promote_types(dt, t.dtype)
+        return torch.cat([t.to(dt) for t in ts], dim=axis)
+
+    def op_Slice(self, node, x, starts=None, ends=None, axes=None,
+                 steps=None):
+        if starts is None:  # opset < 10: attributes
+            starts = node.attr("starts")
+            ends = node.attr("ends")
+            axes = node.attr("axes")
+        starts = [int(v) for v in np.asarray(starts).reshape(-1)]
+        ends = [int(v) for v in np.asarray(ends).reshape(-1)]
+        nd = np.ndim(x)
+        axes = (list(range(len(starts))) if axes is None
+                else [int(v) % nd for v in np.asarray(axes).reshape(-1)])
+        steps = ([1] * len(starts) if steps is None
+                 else [int(v) for v in np.asarray(steps).reshape(-1)])
+        slicers = [slice(None)] * nd
+        reversed_axes = []
+        for st, en, ax, sp in zip(starts, ends, axes, steps):
+            dim = x.shape[ax]
+            # ONNX uses INT64_MAX-ish sentinels for "to the end".
+            st, en = min(st, dim), min(en, dim)
+            slicers[ax] = slice(st, en, sp)
+            if sp < 0:
+                reversed_axes.append(ax)
+        if _is_host(x) or not reversed_axes:
+            return x[tuple(slicers)]
+        # torch slicing takes no negative steps: gather those axes.
+        out = x
+        for ax, sl in enumerate(slicers):
+            if ax in reversed_axes:
+                idx = torch.arange(*sl.indices(x.shape[ax]), device=x.device)
+                out = out.index_select(ax, idx)
+            else:
+                out = out[(slice(None),) * ax + (sl,)]
+        return out
+
+    # -- reductions ----------------------------------------------------------
+
+    _REDUCE_NOOP = object()
+
+    def _reduce_plan(self, node, x, axes):
+        """Axes from the input, else the attribute; empty or absent axes
+        follow ``noop_with_empty_axes`` (None = every axis)."""
+        if axes is None:
+            axes = node.attr("axes")
+        if axes is not None:
+            nd = np.ndim(x)
+            t = tuple(int(a) % nd for a in np.asarray(axes).reshape(-1))
+            if t:
+                return t
+        return self._REDUCE_NOOP if node.attr("noop_with_empty_axes", 0) \
+            else None
+
+    @staticmethod
+    def _mean(x, axes, keepdims: bool):
+        """jnp.mean's arithmetic: fp32 accumulation, result at the input's
+        float dtype."""
+        dims = axes if axes is not None else tuple(range(x.ndim))
+        return x.float().mean(dim=dims, keepdim=keepdims).to(x.dtype)
+
+    def op_ReduceMean(self, node, x, axes=None):
+        plan = self._reduce_plan(node, x, axes)
+        if plan is self._REDUCE_NOOP:
+            return x
+        keepdims = bool(node.attr("keepdims", 1))
+        if _is_host(x):
+            return np.mean(x, axis=plan, keepdims=keepdims)
+        return self._mean(x, plan, keepdims)
+
+    def op_GlobalAveragePool(self, node, x):
+        axes = tuple(range(2, np.ndim(x)))
+        if _is_host(x):
+            return np.mean(x, axis=axes, keepdims=True)
+        return self._mean(x, axes, True)
+
+    # -- linear algebra ------------------------------------------------------
+
+    def op_MatMul(self, node, a, b):
+        if _is_host(a) and _is_host(b):
+            return np.matmul(a, b)
+        a, b = self._mm_cast(_device_of(a, b), a, b)
+        return self._mm_out(self._contract(torch.matmul, a, b))
+
+    def op_Gemm(self, node, a, b, c=None):
+        if np.ndim(a) != 2 or np.ndim(b) != 2:
+            raise UnsupportedOnnxOp(
+                f"Gemm requires rank-2 inputs, got A rank {np.ndim(a)} and "
+                f"B rank {np.ndim(b)} (node {node.name or node.op_type}; "
+                "the graph is invalid per the ONNX spec)")
+        alpha = node.attr("alpha", 1.0)
+        beta = node.attr("beta", 1.0)
+        if node.attr("transA", 0):
+            a = a.T
+        if node.attr("transB", 0):
+            b = b.T
+        if _is_host(a) and _is_host(b):
+            out = alpha * np.matmul(a, b)
+        else:
+            a, b = self._mm_cast(_device_of(a, b), a, b)
+            out = alpha * self._contract(torch.matmul, a, b)
+        if c is None:
+            return out if _is_host(out) else self._mm_out(out)
+        if _is_host(out):
+            return out + beta * c
+        # The bias joins on the device: a host-side product would be a new
+        # array, copied (and synchronized) on every call.
+        c = self._tensor(c, out.device)
+        return self._mm_out(self.op_Add(node, out,
+                                        c if beta == 1.0 else beta * c))
+
+    # -- convolution ---------------------------------------------------------
+
+    def _conv_params(self, node, x, w):
+        spatial = np.ndim(x) - 2
+        kernel = list(w.shape[2:])
+        strides = list(node.attr("strides") or [1] * spatial)
+        dilations = list(node.attr("dilations") or [1] * spatial)
+        group = node.attr("group", 1)
+        autopad = node.attr("auto_pad", b"NOTSET")
+        pads_attr = node.attr("pads")
+        if autopad in (b"SAME_UPPER", b"SAME_LOWER"):
+            pads = _autopad_amounts(list(x.shape[2:]), kernel, strides,
+                                    dilations, autopad)
+        elif autopad == b"VALID" or pads_attr is None:
+            pads = [(0, 0)] * spatial
+        else:
+            p = [int(v) for v in pads_attr]
+            pads = list(zip(p[:spatial], p[spatial:]))
+        return strides, pads, dilations, group
+
+    def _bias(self, out, b, spatial: int):
+        if b is None:
+            return out
+        # Reshaped on the device: the cached copy of a constant bias is
+        # reused, where a host-side reshape would be copied every call.
+        b = self._tensor(b, out.device).reshape((1, -1) + (1,) * spatial)
+        return self.op_Add(None, out, b)
+
+    def op_Conv(self, node, x, w, b=None):
+        strides, pads, dilations, group = self._conv_params(node, x, w)
+        spatial = np.ndim(x) - 2
+        dev = _device_of(x, w, b)
+        if (spatial == 1 and x.shape[1] == 1 and group == 1
+                and dilations == [1] and w.shape[2] >= 256
+                and pads == [(0, 0)]):
+            # Conv1d-STFT form (single input channel, long kernel, big
+            # stride): strided frames as an unfold view times the DFT
+            # matrix, one plain matmul.
+            k, hop = w.shape[2], strides[0]
+            xx, wm = self._mm_cast(dev, x[:, 0, :], w[:, 0, :])
+            frames = xx.unfold(-1, k, hop)  # [B, T, k]
+            out = self._contract(lambda f, m: torch.matmul(f, m.T),
+                                 frames, wm).transpose(1, 2)
+            return self._mm_out(self._bias(out, b, 1))
+        x, w = self._mm_cast(dev, x, w)
+        if not x.is_floating_point():
+            raise UnsupportedOnnxOp(
+                f"integer Conv (node '{node.name}') is not supported")
+        lo = [p[0] for p in pads]
+        hi = [p[1] for p in pads]
+        if lo != hi:
+            x = F.pad(x, [v for pair in reversed(pads) for v in pair])
+            lo = [0] * spatial
+        conv = (F.conv1d, F.conv2d, F.conv3d)[spatial - 1]
+        out = self._contract(
+            lambda a, k: conv(a, k, None, strides, lo, dilations, group),
+            x, w)
+        return self._mm_out(self._bias(out, b, spatial))
+
+    def op_BirdaFusedMelFrontend(self, node, x, w, fb):
+        """The fused spectrogram front-end spliced in by
+        :func:`birda_tpu.onnx.fuse.fuse_mel_frontend`: windowed-DFT conv,
+        power, mel projection and log in one CUDA kernel
+        (``ops/stft_conv.py::fused_logmel``). ``x`` is the conv input
+        ``[B, 1, S]`` (the STFT-op spelling: ``[B, S]`` or ``[B, S, 1]``);
+        the output ``[B, T, sum(mels)]`` is the chain's Log."""
+        hop, eps = node.attr("hop"), node.attr("eps")
+        dev = _device_of(x, w, fb)
+        sig = self._tensor(x, dev)
+        if node.attr("src", b"conv") == b"stft":
+            sig = sig if sig.ndim == 2 else sig[:, :, 0]
+        else:
+            sig = sig[:, 0, :]
+        layout = self._logmel_layout(w, fb, dev) if dev.type == "cuda" \
+            else None
+        wm = self._tensor(w, dev)[:, 0, :]
+        return stft_conv.fused_logmel(sig, wm, self._tensor(fb, dev),
+                                      hop=hop, eps=eps, prepared=layout)
+
+    def _logmel_layout(self, w, fb, device):
+        """The kernel's layout of this front-end's weights, made once per
+        (weight, filterbank) pair."""
+        key = (id(w), id(fb), device)
+        hit = self._logmel_layouts.get(key)
+        if hit is None or hit[0] is not w or hit[1] is not fb:
+            layout = stft_conv.prepare_logmel_weights(
+                self._tensor(w, device)[:, 0, :], self._tensor(fb, device))
+            hit = self._logmel_layouts[key] = (w, fb, layout)
+        return hit[2]
+
+    # -- normalization -------------------------------------------------------
+
+    def op_BatchNormalization(self, node, x, scale, bias, mean, var):
+        eps = node.attr("epsilon", 1e-5)
+        shape = (1, -1) + (1,) * (np.ndim(x) - 2)
+        if all(_is_host(v) for v in (scale, bias, mean, var)):
+            # Host-folded once per node: the constants never change.
+            key = (id(scale), id(bias), id(mean), id(var))
+            fold = self._bn_folds.get(node.name)
+            if fold is None or fold[0] != key:
+                inv = np.reshape(scale, shape) / np.sqrt(
+                    np.reshape(var, shape) + eps)
+                shift = np.reshape(bias, shape) - np.reshape(mean, shape) * inv
+                fold = self._bn_folds[node.name] = (key, inv, shift)
+                self._persistent.update((id(inv), id(shift)))
+            _, inv, shift = fold
+        else:
+            def r(v):
+                return np.reshape(v, shape) if _is_host(v) \
+                    else v.reshape(shape)
+
+            inv = self.op_Div(node, r(scale),
+                              self.op_Sqrt(node, self.op_Add(node, r(var),
+                                                             eps)))
+            shift = self.op_Sub(node, r(bias), self.op_Mul(node, r(mean), inv))
+        return self.op_Add(node, self.op_Mul(node, x, inv), shift)
+
+
+def lower(model: Model | bytes | str, compute_dtype=None) -> "OnnxFunction":
+    """Lower an ONNX model (path, bytes, or parsed Model) to a torch
+    function. ``compute_dtype=torch.bfloat16`` runs matmuls/convs in mixed
+    precision with fp32 accumulation; None is the fp32 route. A
+    caller-owned Model is never mutated (the fusion pass splices in
+    place), exactly as in the JAX lowering."""
+    if isinstance(model, Model):
+        return OnnxFunction(model, compute_dtype=compute_dtype)
+    model = load_model(model)
+    maybe_fuse_frontend(model, compute_dtype)
+    return OnnxFunction(model, compute_dtype=compute_dtype)
+
+
+def maybe_fuse_frontend(model: Model, compute_dtype) -> int:
+    """Splice the fused spectrogram front-end into ``model`` when compute is
+    bf16, on any device (the kernel's plain version serves the CPU); the
+    fp32 route keeps the node-by-node graph. Reuses
+    :func:`birda_tpu.onnx.fuse.fuse_mel_frontend` unchanged."""
+    if compute_dtype != torch.bfloat16:
+        return 0
+    from birda_tpu.onnx.fuse import fuse_mel_frontend
+
+    return fuse_mel_frontend(model.graph)
+
+
+class OnnxFunction:
+    """A callable torch function built from an ONNX graph.
+
+    Call with tensors matching the graph's (non-initializer) inputs; returns
+    a tuple of outputs (or a single tensor if one output). Large float
+    weights live in :attr:`params` (name -> numpy array) and are fed per
+    call: pass ``params=`` with device tensors (see
+    :func:`birda_tpu_torch.models.zoo.params_from_numpy`) to keep one copy
+    on the card. Small initializers stay host numpy, so shape parameters
+    fold on the host.
+    """
+
+    def __init__(self, model: Model, compute_dtype=None, evaluator=None):
+        self.model = model
+        self.graph = model.graph
+        self._eval = (
+            evaluator if evaluator is not None
+            else _Evaluator(self.graph, compute_dtype=compute_dtype,
+                            opset=model.opset)
+        )
+        if getattr(self._eval, "opset", 0) == 0:
+            self._eval.opset = model.opset
+        from birda_tpu.onnx.preflight import preflight_or_raise
+
+        preflight_or_raise(model, evaluator=self._eval)
+        init_names = set(self.graph.initializers)
+        self.input_names = [
+            vi.name for vi in self.graph.inputs if vi.name not in init_names
+        ]
+        self.output_names = [vi.name for vi in self.graph.outputs]
+        self.params: dict[str, np.ndarray] = {}
+        for name in list(self._eval.const):
+            arr = self._eval.const[name]
+            if (
+                name in init_names
+                and isinstance(arr, np.ndarray)
+                and (arr.dtype.kind == "f"
+                     or (arr.dtype.kind in "iu" and arr.dtype.itemsize == 1))
+                and arr.nbytes >= LIFT_PARAM_BYTES
+            ):
+                self.params[name] = self._eval.const.pop(name)
+
+    def prepare(self, params: dict[str, torch.Tensor]) -> None:
+        """Lay out every fused front-end's weights for its CUDA kernel now
+        (once, at load) rather than on the first call."""
+        for node in self.graph.nodes:
+            if node.op_type != "BirdaFusedMelFrontend":
+                continue
+            w, fb = (params.get(n, self._eval.const.get(n))
+                     for n in node.inputs[1:3])
+            dev = _device_of(w, fb)
+            if dev.type == "cuda":
+                self._eval._logmel_layout(w, fb, dev)
+
+    def __call__(self, *args, params=None, **feeds):
+        if args:
+            feeds = dict(zip(self.input_names, args)) | feeds
+        missing = [n for n in self.input_names if n not in feeds]
+        if missing:
+            raise ValueError(f"missing graph inputs: {missing}")
+        feeds = {k: torch.from_numpy(_host_array(v)) if _is_host(v) else v
+                 for k, v in feeds.items()}
+        env = dict(params if params is not None else self.params)
+        env.update(feeds)
+        env = self._eval.run(env)
+        outs = tuple(env[n] for n in self.output_names)
+        return outs[0] if len(outs) == 1 else outs

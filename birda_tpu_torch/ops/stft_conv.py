@@ -1,0 +1,161 @@
+"""Fused log-mel front-end: the Hopper port of ``birda_tpu/ops/stft_conv.py``.
+
+:func:`fused_logmel` computes what the Pallas kernel ``_fused_logmel`` does
+on the TPU — windowed-DFT matmul with fp32 accumulation, power from the fp32
+accumulator rounded to bf16, mel projection with fp32 accumulation,
+``log(mel + eps)`` out as bf16 — through the CUDA kernel in
+``csrc/fused_logmel.cu`` for a CUDA tensor, and through its plain PyTorch
+version :func:`fused_logmel_reference` for a CPU tensor.
+
+The kernel takes its constants in a padded, tiled layout
+(:func:`prepare_logmel_weights`): the graph's weights are fixed, so the
+lowering prepares that layout once per weight pair, not per call.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from collections import Counter
+from dataclasses import dataclass
+
+import torch
+
+#: Kernel launches by kernel name, counted by each wrapper where it launches
+#: its kernel and nowhere else.
+LAUNCHES: Counter = Counter()
+
+#: Widest mel output (sum of the banks) the kernel's register tiling holds.
+MAX_MELS = 256
+
+
+def _lib():
+    from ._build import load
+
+    lib = load("fused_logmel")
+    if lib.birda_fused_logmel.argtypes is None:
+        lib.birda_fused_logmel.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.birda_fused_logmel.restype = ctypes.c_int
+    return lib
+
+
+def _tiles() -> tuple[int, int, int]:
+    """(frames, bins, K) tile sizes compiled into the kernel."""
+    lib = _lib()
+    return (lib.birda_fused_logmel_tile_t(),
+            lib.birda_fused_logmel_tile_bins(),
+            lib.birda_fused_logmel_tile_k())
+
+
+@dataclass(frozen=True)
+class LogmelWeights:
+    """The kernel's layout of one front-end's DFT weight and filterbank.
+
+    ``w``: ``[n_bin_tiles, n_k_chunks, tile_k, 2 * tile_bins]`` bf16 — for
+    each bin tile and K chunk, the chunk of the cos rows then the -sin rows,
+    transposed to ``[k, bin]``, zero-padded past ``bins`` and ``k``.
+    ``fb``: ``[n_bin_tiles * tile_bins, mp]`` bf16, zero-padded to whole bin
+    tiles and to ``mp``, the mel width rounded up to a multiple of 32.
+    """
+
+    w: torch.Tensor
+    fb: torch.Tensor
+    bins: int
+    k: int
+    m: int
+
+
+def prepare_logmel_weights(w: torch.Tensor, fb: torch.Tensor
+                           ) -> LogmelWeights:
+    """Lay out ``w [2*bins, K]`` and ``fb [bins, M]`` for the CUDA kernel."""
+    c, k = w.shape
+    bins, m = fb.shape
+    if c != 2 * bins:
+        raise ValueError(f"DFT weight has {c} rows for {bins} bins")
+    if m > MAX_MELS:
+        raise ValueError(
+            f"fused_logmel holds at most {MAX_MELS} mel outputs (got {m})")
+    _, tb, tk = _tiles()
+    nbt, nkc = -(-bins // tb), -(-k // tk)
+    mp = -(-m // 32) * 32
+    dev = w.device
+    banks = torch.zeros((2, nbt * tb, nkc * tk), dtype=torch.bfloat16,
+                        device=dev)
+    banks[0, :bins, :k] = w[:bins]
+    banks[1, :bins, :k] = w[bins:]
+    # [2, nbt, tb, nkc, tk] -> [nbt, nkc, tk, 2, tb]: cos then sin per row.
+    wp = (banks.view(2, nbt, tb, nkc, tk).permute(1, 3, 4, 0, 2)
+          .reshape(nbt, nkc, tk, 2 * tb).contiguous())
+    fbp = torch.zeros((nbt * tb, mp), dtype=torch.bfloat16, device=dev)
+    fbp[:bins, :m] = fb
+    return LogmelWeights(w=wp, fb=fbp, bins=bins, k=k, m=m)
+
+
+def fused_logmel_reference(x: torch.Tensor, w: torch.Tensor,
+                           fb: torch.Tensor, hop: int, eps: float
+                           ) -> torch.Tensor:
+    """Plain PyTorch version: ``[B,S] x [2*bins,K] x [bins,M] -> [B,T,M]``.
+
+    The same bf16 operands as the kernel, products summed in fp32:
+    frames unfolded from the bf16 signal, the DFT as an fp32 matmul, power
+    rounded to bf16, the mel matmul in fp32, then ``log(mel + eps)`` as bf16.
+    """
+    bins = fb.shape[0]
+    k = w.shape[1]
+    frames = x.to(torch.bfloat16).float().unfold(-1, k, hop)  # [B, T, K]
+    spec = torch.matmul(frames, w.to(torch.bfloat16).float().T)
+    re, im = spec[..., :bins], spec[..., bins:2 * bins]
+    power = (re * re + im * im).to(torch.bfloat16).float()
+    mel = torch.matmul(power, fb.to(torch.bfloat16).float())
+    return torch.log(mel + eps).to(torch.bfloat16)
+
+
+def fused_logmel(x: torch.Tensor, w: torch.Tensor, fb: torch.Tensor,
+                 hop: int, eps: float,
+                 prepared: LogmelWeights | None = None) -> torch.Tensor:
+    """``[B,S] x [2*bins,K] x [bins,M] -> [B,T,M]`` bf16 log-mel image,
+    ``T = (S - K) // hop + 1``; ``w`` rows are ``[cos ; -sin]``, ``fb`` the
+    mel banks concatenated column-wise.
+
+    A CUDA tensor launches the kernel (``prepared`` is the layout of ``w``
+    and ``fb`` from :func:`prepare_logmel_weights`, made here when absent)
+    or raises; a CPU tensor takes :func:`fused_logmel_reference`.
+    """
+    if x.device.type == "cpu":
+        return fused_logmel_reference(x, w, fb, hop, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_logmel: unsupported device {x.device}")
+    if x.ndim != 2:
+        raise ValueError(f"fused_logmel: signal must be [B, S], got "
+                         f"{tuple(x.shape)}")
+    if prepared is None:
+        prepared = prepare_logmel_weights(w, fb)
+    for name, t in (("w", prepared.w), ("fb", prepared.fb)):
+        if t.device != x.device:
+            raise ValueError(f"fused_logmel: {name} on {t.device}, signal "
+                             f"on {x.device}")
+    b, s = x.shape
+    k, m = prepared.k, prepared.m
+    if s < k:
+        raise ValueError(f"fused_logmel: signal of {s} samples is shorter "
+                         f"than the {k}-sample window")
+    tt, _, tk = _tiles()
+    t = (s - k) // hop + 1
+    n_bin_tiles, n_kc = prepared.w.shape[0], prepared.w.shape[1]
+    # Every frame of the last frame tile reads inside the padded signal.
+    stride = max(s, (-(-t // tt) * tt - 1) * hop + n_kc * tk)
+    with torch.cuda.device(x.device):
+        xp = torch.zeros((b, stride), dtype=torch.bfloat16, device=x.device)
+        xp[:, :s] = x
+        out = torch.empty((b, t, m), dtype=torch.bfloat16, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _lib().birda_fused_logmel(
+            xp.data_ptr(), prepared.w.data_ptr(), prepared.fb.data_ptr(),
+            out.data_ptr(), b, stride, hop, t, m, prepared.fb.shape[1],
+            n_bin_tiles, n_kc, float(eps), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_logmel kernel launch failed: CUDA error "
+                           f"{rc}")
+    LAUNCHES["fused_logmel"] += 1
+    return out

@@ -1,0 +1,619 @@
+"""Analysis orchestration: the port of ``birda_tpu/orchestrator.py``.
+
+The same analyze flow — model resolution (named > ad-hoc > default),
+device resolution, species-list precedence, smart batch-size defaults,
+warm-up, the per-file loop with skip/lock/stale-reclaim/error-isolation
+semantics, output combining and the run summary — on the PyTorch
+classifier. The JAX module imports jax at load, so its flow is ported here
+with the same names; everything it calls that is host code is imported from
+``birda_tpu`` as it is.
+
+Not yet ported, and refused with a typed error rather than run
+differently: ``--precision mixed``/``int8``, ``synthetic:`` model paths,
+``--bat``, ``--region-labels``, the geomodel range filter, ``--jobs`` above
+1 and ``--devices`` above 1.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Optional
+
+from birda_tpu import constants
+from birda_tpu.config import range_filter as rf_cfg
+from birda_tpu.config.types import Config, InferenceDevice, ModelConfig, ModelType
+from birda_tpu.config.validate import get_model, validate_model_config
+from birda_tpu.errors import (
+    BirdaError,
+    ClassifierBuild,
+    ConfigValidation,
+    FileLocked,
+)
+from birda_tpu.inference.range_filter import read_geomodel_labels
+from birda_tpu.locking.file_lock import FileLock
+from birda_tpu.models import contracts
+from birda_tpu.output import json_envelope as env
+from birda_tpu.output.json_envelope import FileStatus, PipelineStatus
+from birda_tpu.pipeline.config import ProcessingConfig
+from birda_tpu.pipeline.coordinator import (
+    OutputFormat,
+    ProcessCheck,
+    collect_input_files,
+    output_dir_for,
+    should_process,
+)
+
+from .inference.classifier import BirdClassifier
+from .models.zoo import LoadedModel, onnx_model
+from .pipeline.processor import process_file
+
+logger = logging.getLogger(__name__)
+
+ADHOC_MODEL_NAME = "ad-hoc"
+PROCESSING_ERROR_CODE = "processing_error"
+
+_MODEL_TYPE_TO_FAMILY = {
+    ModelType.BIRDNET_V24: contracts.ModelFamily.BIRDNET_V24,
+    ModelType.BIRDNET_V30: contracts.ModelFamily.BIRDNET_V30,
+    ModelType.PERCH_V2: contracts.ModelFamily.PERCH_V2,
+    ModelType.BSG_FINLAND: contracts.ModelFamily.BSG_FI_V44,
+}
+
+#: Precisions this port runs (the JAX package also has mixed and int8).
+PRECISIONS = ("fp32", "bf16")
+
+
+def _not_yet_ported(what: str) -> ClassifierBuild:
+    return ClassifierBuild(f"{what} is not yet ported to birda_tpu_torch")
+
+
+@dataclass
+class AnalyzeOptions:
+    """Parsed analyze inputs (the fields of the JAX package's
+    ``AnalyzeOptions``; see there for each one's meaning)."""
+
+    inputs: list[Path] = field(default_factory=list)
+    model: Optional[str] = None
+    model_path: Optional[Path] = None
+    labels_path: Optional[Path] = None
+    model_type: Optional[ModelType] = None
+    bat: Optional[str] = None
+    formats: Optional[list[OutputFormat]] = None
+    output_dir: Optional[Path] = None
+    min_confidence: Optional[float] = None
+    overlap: Optional[float] = None
+    batch_size: Optional[int] = None
+    combine: bool = False
+    force: bool = False
+    fail_fast: bool = False
+    no_csv_bom: bool = False
+    device_flags: dict = field(default_factory=dict)  # {"cpu": bool, ...}
+    lat: Optional[float] = None
+    lon: Optional[float] = None
+    week: Optional[int] = None
+    month: Optional[int] = None
+    day: Optional[int] = None
+    day_of_year: Optional[int] = None
+    range_threshold: Optional[float] = None
+    rerank: bool = False
+    range_unmatched: Optional[str] = None
+    slist: Optional[Path] = None
+    stale_lock_timeout: Optional[float] = None
+    stdout_mode: bool = False
+    jobs: int = 1
+    dual_output_mode: bool = False
+    top_k: int = constants.DEFAULT_TOP_K
+    geomodel_path: Optional[Path] = None
+    geomodel_labels_path: Optional[Path] = None
+    allow_download: bool = False
+    region_labels: Optional[Path] = None
+    decode_workers: int = 0
+    #: "fp32" (TF32 off) or "bf16" (bf16 matmuls/convs with fp32
+    #: accumulation and the fused front-end kernel).
+    precision: str = "fp32"
+    calibration_audio: Optional[Path] = None
+    stream_detections: bool = False
+    devices: Optional[int] = None
+    interactive: bool = False
+
+
+@dataclass
+class RunStats:
+    files_processed: int = 0
+    files_failed: int = 0
+    files_skipped: int = 0
+    total_detections: int = 0
+    total_segments: int = 0
+    total_audio_secs: float = 0.0
+    started: float = field(default_factory=time.monotonic)
+
+    @property
+    def duration_secs(self) -> float:
+        return time.monotonic() - self.started
+
+    @property
+    def realtime_factor(self) -> float:
+        d = self.duration_secs
+        return self.total_audio_secs / d if d > 0 else 0.0
+
+    @property
+    def segments_per_sec(self) -> float:
+        d = self.duration_secs
+        return self.total_segments / d if d > 0 else 0.0
+
+
+# ---------------------------------------------------------------------------
+# Resolution helpers
+# ---------------------------------------------------------------------------
+
+def _apply_model_overrides(mc: ModelConfig,
+                           options: AnalyzeOptions) -> ModelConfig:
+    """``--model-path``/``--labels-path`` patch a named/default model;
+    returns a copy."""
+    if options.model_path is None and options.labels_path is None:
+        return mc
+    import dataclasses
+
+    return dataclasses.replace(
+        mc,
+        path=options.model_path if options.model_path is not None else mc.path,
+        labels=(options.labels_path if options.labels_path is not None
+                else mc.labels),
+    )
+
+
+def resolve_model_config(options: AnalyzeOptions, config: Config
+                         ) -> tuple[ModelConfig, str]:
+    """Priority: -m name > ad-hoc (--model-path + --model-type) > config
+    default."""
+    if options.model is not None:
+        mc = get_model(config, options.model)
+        if options.model_type is not None:
+            logger.warning("--model-type is ignored when -m is provided "
+                           "(using model type from config)")
+        return _apply_model_overrides(mc, options), options.model
+
+    if options.model_type is not None and options.model_path is not None:
+        if options.labels_path is None:
+            raise ConfigValidation(
+                "--labels-path required when using --model-path with "
+                "--model-type")
+        return (
+            ModelConfig(path=options.model_path, labels=options.labels_path,
+                        model_type=options.model_type),
+            ADHOC_MODEL_NAME,
+        )
+
+    if config.defaults.model is not None:
+        mc = get_model(config, config.defaults.model)
+        if options.model_type is not None:
+            logger.warning(
+                "--model-type is ignored when using default model '%s' "
+                "(provide both --model-path and --model-type to use "
+                "ad-hoc mode)", config.defaults.model)
+        return _apply_model_overrides(mc, options), config.defaults.model
+
+    if options.model_path is not None:
+        raise ConfigValidation(
+            "--model-type required when using --model-path without -m")
+    raise ConfigValidation(
+        "no model specified (use -m, set defaults.model in config, or "
+        "provide --model-path with --labels-path and --model-type)")
+
+
+def resolve_decode_workers(options: AnalyzeOptions) -> int:
+    """0 = auto: split one file's decode across up to 4 cores."""
+    if options.decode_workers > 0:
+        return options.decode_workers
+    import os
+
+    return max(1, min(4, os.cpu_count() or 1))
+
+
+def load_model_graph(mc: ModelConfig, name: str,
+                     precision: str = "fp32") -> LoadedModel:
+    """Turn a config entry into a runnable graph: an ``.onnx`` file through
+    the torch lowering, in fp32 or bf16 (on any backend: on the CPU the
+    fused front-end takes its plain version)."""
+    import torch
+
+    if precision not in PRECISIONS:
+        raise _not_yet_ported(f"--precision {precision}")
+    if str(mc.path).startswith("synthetic:"):
+        raise _not_yet_ported("the synthetic: native model path")
+    family = _MODEL_TYPE_TO_FAMILY[mc.model_type]
+    validate_model_config(name, mc)
+    labels = read_geomodel_labels(mc.labels)  # one label per line
+    try:
+        return onnx_model(
+            mc.path, contracts.contract_for(family), labels,
+            dtype=torch.bfloat16 if precision == "bf16" else None)
+    except BirdaError:
+        raise
+    except Exception as e:  # noqa: BLE001 — parse/lowering errors -> typed
+        raise ClassifierBuild(f"cannot load model graph {mc.path}: {e}") \
+            from e
+
+
+def resolve_device(options: AnalyzeOptions, config: Config) -> str:
+    """First set device flag wins, else the config. ``gpu`` is an explicit
+    CUDA request here (in the JAX package it is an alias for auto)."""
+    flags = options.device_flags or {}
+    for flag_name, device in (
+        ("gpu", "cuda"),
+        ("cuda", "cuda"),
+        ("tpu", "tpu"),  # refused by select_backend: no TPU in this build
+        ("cpu", "cpu"),
+    ):
+        if flags.get(flag_name):
+            return device
+    cfg = config.inference.device
+    if cfg == InferenceDevice.GPU:
+        return "cuda"
+    if cfg == InferenceDevice.TPU:
+        return "tpu"
+    if cfg == InferenceDevice.CPU:
+        return "cpu"
+    return "auto"
+
+
+#: Default batch sizes on CUDA, from the reference's code defaults
+#: (BASELINE.md: CUDA v2.4 64, v3.0 and Perch 32). Not yet measured on
+#: the H100: a batch sweep is an open item of PERF.md.
+CUDA_BATCH_BIRDNET_V24 = 64
+CUDA_BATCH_OTHER = 32
+
+
+def determine_default_batch_size(model_type: ModelType,
+                                 actual_backend: str) -> int:
+    """Smart default keyed on (model family, ACTUAL backend)."""
+    bs = constants.batch_size
+    if actual_backend == "cpu":
+        return bs.CPU
+    if actual_backend == "cuda":
+        if model_type in (ModelType.BIRDNET_V24, ModelType.BSG_FINLAND):
+            return CUDA_BATCH_BIRDNET_V24
+        return CUDA_BATCH_OTHER
+    return bs.OTHER_ACCEL
+
+
+def resolve_species_filter(options: AnalyzeOptions, config: Config
+                           ) -> Optional[set[str]]:
+    """A species list (flag or config) filters detections; none = all."""
+    slist_path = options.slist or config.defaults.species_list_file
+    if slist_path is None:
+        return None
+    from birda_tpu.utils.species_list import read_species_list
+
+    species = set(read_species_list(slist_path))
+    logger.info("Species list filter enabled: %d species loaded",
+                len(species))
+    return species
+
+
+def _refuse_unported(options: AnalyzeOptions, config: Config,
+                     mc: ModelConfig) -> None:
+    if options.bat is not None:
+        raise _not_yet_ported("--bat (the bat two-stage head)")
+    if options.region_labels is not None:
+        raise _not_yet_ported("--region-labels")
+    if options.jobs > 1:
+        raise _not_yet_ported("--jobs above 1")
+    if options.devices is not None and options.devices > 1:
+        raise _not_yet_ported("--devices above 1")
+    rf_cfg.validate_threshold(options.range_threshold, config)
+    if rf_cfg.wants_range_filter(
+        config, mc.model_type, False,
+        options.lat, options.lon, options.week, options.month, options.day,
+    ):
+        raise _not_yet_ported("the geomodel range filter (--lat/--lon with "
+                              "a date)")
+
+
+# ---------------------------------------------------------------------------
+# The analyze run
+# ---------------------------------------------------------------------------
+
+def analyze_files(options: AnalyzeOptions, config: Config,
+                  reporter=None) -> int:
+    """Full analyze flow; returns a process exit code."""
+    if options.stdout_mode and len(options.inputs) != 1:
+        raise ConfigValidation("--stdout requires exactly one input file")
+
+    mc, model_name = resolve_model_config(options, config)
+    _refuse_unported(options, config, mc)
+
+    files = collect_input_files(options.inputs)
+    if not files:
+        from birda_tpu.errors import NoValidAudioFiles
+
+        raise NoValidAudioFiles()
+
+    device = resolve_device(options, config)
+    model = load_model_graph(mc, model_name, precision=options.precision)
+    species_list = resolve_species_filter(options, config)
+    min_confidence = (
+        options.min_confidence if options.min_confidence is not None
+        else config.defaults.min_confidence
+    )
+
+    # BSG post-processing: calibration always, SDM when (lat, lon, day)
+    # resolve; the day comes from the flag/config or per-file mtime.
+    bsg_processor = None
+    bsg_params = None
+    if mc.bsg_calibration is not None:
+        from birda_tpu.inference.bsg import BsgPostProcessor
+
+        bsg_processor = BsgPostProcessor.from_paths(
+            mc.bsg_calibration, mc.bsg_migration, mc.bsg_distribution_maps)
+        doy = (options.day_of_year if options.day_of_year is not None
+               else config.defaults.day_of_year)
+        if options.lat is not None and options.lon is not None:
+            bsg_params = (options.lat, options.lon, doy)
+
+    classifier = BirdClassifier(
+        model,
+        device=device,
+        min_confidence=min_confidence,
+        top_k=options.top_k,
+        species_list=species_list,
+    )
+
+    batch_size = (
+        options.batch_size if options.batch_size is not None
+        else config.defaults.batch_size
+        if config.defaults.batch_size is not None
+        else determine_default_batch_size(
+            mc.model_type, classifier.backend_status.actual)
+    )
+    overlap = (options.overlap if options.overlap is not None
+               else config.defaults.overlap)
+    formats = options.formats or config.defaults.formats
+
+    if reporter is not None:
+        reporter.pipeline_started(
+            len(files), model_name, min_confidence,
+            classifier.backend_status.to_json_dict(),
+            None,  # no range filter
+            precision=model.precision_info,
+            sharding=None,
+        )
+
+    # Warm the steady-state runner up front so the first real file does not
+    # absorb the kernel build and autotuning.
+    step_model = max(1, classifier.sample_count
+                     - int(round(overlap * classifier.sample_rate)))
+    try:
+        report = classifier.chunk_runner(batch_size, step_model).ensure_warm()
+    except BirdaError:
+        raise
+    except Exception as e:  # noqa: BLE001 — a graph the card rejects
+        raise ClassifierBuild(str(e)) from e
+    if report is not None:
+        logger.info("warmup batch %d in %.2fs", batch_size, report.seconds)
+
+    stats = process_all_files(
+        classifier, files, options, config, batch_size, overlap, formats,
+        model_name, min_confidence, reporter, bsg_processor, bsg_params,
+    )
+    if options.combine and not options.stdout_mode:
+        _combine_outputs(files, options, formats)
+    _report_summary(stats, reporter)
+    if stats.files_failed > 0 and stats.files_processed == 0:
+        return 1
+    return 0
+
+
+def _emit_file_started(reporter, classifier, input_path, index,
+                       overlap) -> None:
+    """The protocol's file_started event with a duration-based segment
+    estimate."""
+    if reporter is None:
+        return
+    est_segments = 0
+    duration = None
+    try:
+        from birda_tpu.audio.decode import get_audio_duration
+
+        duration = get_audio_duration(input_path)
+        seg = classifier.segment_duration
+        step = max(seg - overlap, 1e-9)
+        import math
+
+        est_segments = (
+            1 if duration <= seg
+            else math.ceil((duration - seg) / step) + 1
+        ) if duration > 0 else 0
+    except BirdaError:
+        pass
+    reporter.file_started(str(input_path), index, est_segments, duration)
+
+
+def process_all_files(
+    classifier, files, options, config, batch_size, overlap, formats,
+    model_name, min_confidence, reporter,
+    bsg_processor=None, bsg_params=None,
+) -> RunStats:
+    stats = RunStats()
+    streamed = (options.stdout_mode or options.dual_output_mode
+                or options.stream_detections)
+    for index, input_path in enumerate(files):
+        output_dir = output_dir_for(input_path, options.output_dir)
+
+        # Stale-lock reclamation before the skip check.
+        if (
+            options.stale_lock_timeout is not None
+            and FileLock.is_locked(input_path, output_dir)
+            and FileLock.is_stale(input_path, output_dir,
+                                  options.stale_lock_timeout)
+        ):
+            logger.info("Reclaiming stale lock for %s", input_path)
+            try:
+                FileLock.remove_stale(input_path, output_dir)
+            except BirdaError as e:
+                logger.warning("could not reclaim stale lock: %s", e)
+
+        check = should_process(
+            input_path, output_dir, formats,
+            force=options.force,
+            stdout_mode=options.stdout_mode or options.stream_detections,
+        )
+        if check != ProcessCheck.PROCESS:
+            stats.files_skipped += 1
+            if reporter is not None:
+                reporter.file_skipped(
+                    str(input_path),
+                    FileStatus.LOCKED if check == ProcessCheck.SKIP_LOCKED
+                    else FileStatus.SKIPPED)
+            continue
+
+        pcfg = ProcessingConfig(
+            input_path=input_path,
+            output_dir=output_dir,
+            formats=formats,
+            min_confidence=min_confidence,
+            overlap=overlap,
+            batch_size=batch_size,
+            csv_columns=list(config.defaults.csv_columns.include),
+            csv_bom_enabled=not options.no_csv_bom,
+            model_name=model_name,
+            reporter=reporter if streamed else None,
+            progress_reporter=reporter,
+            dual_output_mode=options.dual_output_mode,
+            decode_workers=resolve_decode_workers(options),
+            bsg_processor=bsg_processor,
+            bsg_params=bsg_params,
+        )
+        _emit_file_started(reporter, classifier, input_path, index, overlap)
+        start = time.monotonic()
+        try:
+            result = process_file(classifier, pcfg)
+        except FileLocked:
+            # Another worker took the file between the check and the lock.
+            stats.files_skipped += 1
+            if reporter is not None:
+                reporter.file_skipped(str(input_path), FileStatus.LOCKED)
+            continue
+        except BirdaError as e:
+            stats.files_failed += 1
+            logger.error("Failed to process %s: %s", input_path, e)
+            if reporter is not None:
+                reporter.file_completed_failure(
+                    str(input_path), PROCESSING_ERROR_CODE, str(e))
+            if options.fail_fast:
+                raise
+            continue
+        except Exception as e:  # noqa: BLE001 — per-file isolation
+            stats.files_failed += 1
+            logger.error("Failed to process %s: %s: %s", input_path,
+                         type(e).__name__, e)
+            logger.debug("unhandled per-file exception", exc_info=True)
+            if reporter is not None:
+                reporter.file_completed_failure(
+                    str(input_path), PROCESSING_ERROR_CODE,
+                    f"{type(e).__name__}: {e}")
+            if options.fail_fast:
+                raise
+            continue
+
+        stats.files_processed += 1
+        stats.total_detections += result.detections
+        stats.total_segments += result.segments
+        stats.total_audio_secs += result.audio_duration_secs
+        if reporter is not None:
+            reporter.file_completed_success(
+                str(input_path), result.detections,
+                int((time.monotonic() - start) * 1000))
+    return stats
+
+
+def _combine_outputs(files, options, formats):
+    """Combine per-file outputs into single tables (``--combine``)."""
+    from birda_tpu.constants import UTF8_BOM, combined_filenames
+    from birda_tpu.pipeline.coordinator import output_path_for
+
+    out_root = options.output_dir or output_dir_for(files[0], None)
+
+    def parts_of(fmt):
+        return [
+            p for f in files
+            if (p := output_path_for(
+                f, output_dir_for(f, options.output_dir), fmt)).exists()
+        ]
+
+    if OutputFormat.PARQUET in formats:
+        from birda_tpu.output.parquet import combine_parquet_files
+
+        parts = parts_of(OutputFormat.PARQUET)
+        if parts:
+            combine_parquet_files(
+                parts, Path(out_root) / combined_filenames.PARQUET)
+    for fmt, combined_name in (
+        (OutputFormat.CSV, combined_filenames.CSV),
+        (OutputFormat.RAVEN, combined_filenames.RAVEN),
+        (OutputFormat.KALEIDOSCOPE, combined_filenames.KALEIDOSCOPE),
+    ):
+        parts = parts_of(fmt) if fmt in formats else []
+        if not parts:
+            continue
+        selection_id = 0
+        with open(Path(out_root) / combined_name, "w",
+                  encoding="utf-8") as out:
+            if fmt == OutputFormat.CSV and not options.no_csv_bom:
+                out.write(UTF8_BOM.decode("utf-8"))
+            for i, part in enumerate(parts):
+                lines = part.read_text(encoding="utf-8-sig").splitlines(
+                    keepends=True)
+                if i > 0 and lines:
+                    lines = lines[1:]  # every combined format has a header
+                if fmt == OutputFormat.RAVEN:
+                    # Selection ids restart at 1 per file; renumber.
+                    renumbered = []
+                    for j, line in enumerate(lines):
+                        if (i == 0 and j == 0) or "\t" not in line:
+                            renumbered.append(line)
+                            continue
+                        selection_id += 1
+                        _, rest = line.split("\t", 1)
+                        renumbered.append(f"{selection_id}\t{rest}")
+                    lines = renumbered
+                out.writelines(lines)
+
+
+def _report_summary(stats: RunStats, reporter=None):
+    status = (
+        PipelineStatus.SUCCESS if stats.files_failed == 0
+        else PipelineStatus.PARTIAL_SUCCESS if stats.files_processed > 0
+        else PipelineStatus.FAILED
+    )
+    logger.info(
+        "Complete: %d processed, %d skipped, %d errors, %d total "
+        "detections in %.2fs",
+        stats.files_processed, stats.files_skipped, stats.files_failed,
+        stats.total_detections, stats.duration_secs,
+    )
+    if stats.files_processed > 0:
+        logger.info(
+            "Performance: %.1f segments/sec overall, %.1fx realtime "
+            "(%.1fs total audio)",
+            stats.segments_per_sec, stats.realtime_factor,
+            stats.total_audio_secs,
+        )
+    if stats.files_failed > 0:
+        logger.warning("%d file(s) had errors", stats.files_failed)
+    if reporter is not None:
+        reporter.pipeline_completed(
+            env.pipeline_completed_payload(
+                status,
+                stats.files_processed,
+                stats.files_failed,
+                stats.files_skipped,
+                stats.total_detections,
+                stats.total_segments,
+                int(stats.duration_secs * 1000),
+                stats.realtime_factor,
+            )
+        )
