@@ -1,8 +1,11 @@
 """birda_tpu_torch — the PyTorch/CUDA port of birda_tpu.
 
-The same analyze pipeline as ``birda_tpu`` (whose host layers it imports
-as they are), with the device path in PyTorch and the TPU's Pallas kernels
-rewritten by hand in CUDA C++ for Hopper (``csrc/``). It imports no jax.
+The same analyze pipeline as ``birda_tpu``, with the device path in
+PyTorch and the TPU's Pallas kernels rewritten by hand in CUDA C++ for
+Hopper (``csrc/``). It imports no jax and nothing of ``birda_tpu``: the
+host layers (decode, config, locking, writers, the ONNX parser and fusion
+pass, ...) are the port's own copies, under the same subpackage and module
+names. It runs on the CUDA card unless the caller asks for the CPU.
 """
 
 __version__ = "0.1.0"

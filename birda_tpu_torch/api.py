@@ -9,31 +9,112 @@
             print(d.start_time, d.scientific_name, d.confidence)
 
 The same keywords as the JAX package's ``analyze``, the same result types
-(:class:`~birda_tpu.api.AnalyzeResult`, which the result here extends with
-what the run reported, and :class:`~birda_tpu.api.FileResult`) and the same
-bounds checks, over the port's orchestrator. ``device`` is
-``auto``/``cpu``/``cuda``/``gpu``; ``gpu`` is an explicit CUDA request.
+(:class:`AnalyzeResult`, which here also carries what the run reported, and
+:class:`FileResult`) and the same bounds checks, over the port's
+orchestrator. ``device`` is ``auto``/``cpu``/``cuda``/``gpu``: ``auto``
+(the default) and ``gpu`` run on the CUDA card and fail without one; only
+``cpu`` runs on the CPU.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Optional, Sequence
 
-from birda_tpu import api as _jax_api
-from birda_tpu.api import FileResult, _Collector, _validate_bounds
+from .output.reporter import ProgressReporter
+from .output.types import Detection
 
-__all__ = ["analyze", "AnalyzeResult", "FileResult"]
+__all__ = ["analyze", "AnalyzeResult", "FileResult", "Detection"]
 
 
 @dataclass
-class AnalyzeResult(_jax_api.AnalyzeResult):
-    """Whole-run outcome, plus the backend status (``requested``/``actual``
-    /``fallback_reason``) and the run summary the pipeline reported."""
+class FileResult:
+    """Per-file outcome: detections on success, an error string on failure,
+    a skip reason when the file was skipped (lock/resume semantics)."""
 
+    path: Path
+    detections: list[Detection] = field(default_factory=list)
+    error: Optional[str] = None
+    skipped: Optional[str] = None
+
+    @property
+    def ok(self) -> bool:
+        """Analyzed successfully: no error AND not skipped — a locked or
+        resume-skipped file was never analyzed, which must not read as a
+        successful zero-detection result."""
+        return self.error is None and self.skipped is None
+
+
+@dataclass
+class AnalyzeResult:
+    """Whole-run outcome."""
+
+    files: list[FileResult]
+    exit_code: int
+    #: The backend status (``requested``/``actual``/``fallback_reason``)
+    #: and the run summary the pipeline reported.
     backend: Optional[dict] = None
     summary: Optional[dict] = None
+
+    @property
+    def detections(self) -> list[Detection]:
+        """All detections across files, in processing order."""
+        return [d for f in self.files for d in f.detections]
+
+    def __iter__(self):
+        return iter(self.files)
+
+
+class _Collector(ProgressReporter):
+    """Reporter that captures the detection stream in memory."""
+
+    def __init__(self):
+        self.by_file: dict[str, FileResult] = {}
+
+    def _entry(self, file) -> FileResult:
+        key = str(file)
+        if key not in self.by_file:
+            self.by_file[key] = FileResult(path=Path(key))
+        return self.by_file[key]
+
+    def detections(self, file, detections, bsg_metadata=None):
+        self._entry(file).detections.extend(detections)
+
+    def file_completed_failure(self, file, error_code, error_message):
+        self._entry(file).error = f"{error_code}: {error_message}"
+
+    def file_skipped(self, file, reason):
+        entry = self._entry(file)
+        entry.skipped = getattr(reason, "value", str(reason))
+
+
+def _validate_bounds(**values) -> None:
+    """Apply the CLI validators to whichever bounded values are set,
+    raising the typed ConfigValidation the library contract documents."""
+    from .cli import validators as v
+    from .errors import ConfigValidation
+
+    parsers = {
+        "min_confidence": v.parse_confidence,
+        "overlap": v.parse_overlap,
+        "batch_size": v.parse_batch_size,
+        "lat": v.parse_latitude,
+        "lon": v.parse_longitude,
+        "week": v.parse_week,
+        "month": v.parse_month,
+        "day": v.parse_day,
+        "day_of_year": v.parse_day_of_year,
+        "range_threshold": v.parse_confidence,
+        "threshold": v.parse_confidence,
+    }
+    for name, value in values.items():
+        if value is None:
+            continue
+        try:
+            parsers[name](value)
+        except v.ValidationFailure as e:
+            raise ConfigValidation(f"{name}: {e}") from e
 
 
 class _RunCollector(_Collector):
@@ -89,14 +170,13 @@ def analyze(
     config=None,
 ) -> AnalyzeResult:
     """Analyze audio files and return detections in memory (no output
-    files). Model selection, bounds and error semantics follow
-    :func:`birda_tpu.api.analyze`; options this port does not run yet
+    files). Model selection, bounds and error semantics follow the JAX
+    package's ``birda_tpu.api.analyze``; options this port does not run yet
     raise a typed ``ClassifierBuild`` error."""
-    from birda_tpu import constants
-    from birda_tpu.config import file as config_file
-    from birda_tpu.config.types import Config, ModelType
-    from birda_tpu.errors import BirdaError, ConfigValidation
-
+    from . import constants
+    from .config import file as config_file
+    from .config.types import Config, ModelType
+    from .errors import BirdaError, ConfigValidation
     from .orchestrator import AnalyzeOptions, analyze_files
 
     if isinstance(inputs, (str, Path)):

@@ -16,19 +16,20 @@ import logging
 import sys
 from pathlib import Path
 
-from birda_tpu.cli import validators as v
-from birda_tpu.config import file as config_file
-from birda_tpu.config.types import ModelType, OutputMode
-from birda_tpu.errors import BirdaError
-from birda_tpu.output.json_envelope import ErrorSeverity
-from birda_tpu.output.reporter import create_reporter
-from birda_tpu.pipeline.coordinator import OutputFormat
+from . import validators as v
+from ..config import file as config_file
+from ..config.types import ModelType, OutputMode
+from ..errors import BirdaError
+from ..output.json_envelope import ErrorSeverity
+from ..output.reporter import create_reporter
+from ..pipeline.coordinator import OutputFormat
 
 logger = logging.getLogger(__name__)
 
 
 def _checked(parse):
-    """An argparse type from a ``birda_tpu.cli.validators`` parser."""
+    """An argparse type from a :mod:`birda_tpu_torch.cli.validators`
+    parser."""
 
     def convert(s):
         try:
@@ -120,7 +121,7 @@ def print_error_chain(e: BirdaError) -> None:
 
 
 def analyze(args: argparse.Namespace) -> int:
-    from birda_tpu.config.validate import validate_config
+    from ..config.validate import validate_config
 
     from ..orchestrator import AnalyzeOptions, analyze_files
 
@@ -147,7 +148,7 @@ def analyze(args: argparse.Namespace) -> int:
     if mode.is_structured:
         reporter = create_reporter(mode.value)
     else:
-        from birda_tpu.output.progress import HumanReporter
+        from ..output.progress import HumanReporter
 
         reporter = HumanReporter(enabled=not args.quiet)
 

@@ -1,19 +1,22 @@
 """Accelerator backend selection: the port of
 ``birda_tpu/inference/backend.py`` for CUDA and the CPU.
 
-An explicit request fails loudly when it cannot be met; ``auto`` picks the
-first CUDA device when there is one, else the CPU, with the reason
-recorded. The status keeps the JAX package's ``BackendStatus`` shape
+The port runs on the card: ``auto`` (the default) and ``cuda``/``gpu``
+resolve to the first CUDA device, and without one they fail loudly with a
+typed error that names the CPU request. Only an explicit ``cpu`` runs on
+the CPU. The status keeps the JAX package's ``BackendStatus`` shape
 (``requested``/``actual``/``fallback_reason``), which the JSON protocol
 reports.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Optional
+
 import torch
 
-from birda_tpu.errors import RuntimeInitialization
-from birda_tpu.inference.backend import BackendStatus
+from ..errors import RuntimeInitialization
 
 __all__ = ["AUTO", "CPU", "CUDA", "BackendStatus", "available_backends",
            "select_backend"]
@@ -21,8 +24,21 @@ __all__ = ["AUTO", "CPU", "CUDA", "BackendStatus", "available_backends",
 CUDA = "cuda"
 CPU = "cpu"
 AUTO = "auto"
-#: Device names a caller may request; ``gpu`` is an explicit CUDA request.
-REQUESTS = (AUTO, CUDA, CPU, "gpu")
+
+
+@dataclass
+class BackendStatus:
+    """Requested vs actual backend, with fallback reason when they differ."""
+
+    requested: str
+    actual: str
+    fallback_reason: Optional[str] = None
+
+    def to_json_dict(self) -> dict:
+        d = {"requested": self.requested, "actual": self.actual}
+        if self.fallback_reason is not None:
+            d["fallback_reason"] = self.fallback_reason
+        return d
 
 
 def available_backends() -> list[str]:
@@ -32,7 +48,8 @@ def available_backends() -> list[str]:
 
 def select_backend(requested: str = AUTO
                    ) -> tuple[list[torch.device], BackendStatus]:
-    """Resolve the requested backend to ``([device], status)``."""
+    """Resolve the requested backend to ``([device], status)``; ``gpu`` is
+    an explicit CUDA request."""
     requested = (requested or AUTO).lower()
     if requested == "gpu":
         requested = CUDA
@@ -41,13 +58,10 @@ def select_backend(requested: str = AUTO
             f"unknown device '{requested}' (this build runs on cuda or cpu)")
     if requested == CPU:
         return [torch.device(CPU)], BackendStatus(CPU, CPU)
-    has_cuda = torch.cuda.is_available()
-    if requested == AUTO:
-        if has_cuda:
-            return [torch.device(CUDA, 0)], BackendStatus(AUTO, CUDA)
-        return [torch.device(CPU)], BackendStatus(
-            AUTO, CPU, "no CUDA devices detected")
-    if not has_cuda:
+    if not torch.cuda.is_available():
+        what = ("CUDA was requested" if requested == CUDA
+                else "the default device is the CUDA card")
         raise RuntimeInitialization(
-            "CUDA was requested but no CUDA device is available")
-    return [torch.device(CUDA, 0)], BackendStatus(CUDA, CUDA)
+            f"{what} but no CUDA device is available; pass device=\"cpu\" "
+            "(--cpu) to run on the CPU")
+    return [torch.device(CUDA, 0)], BackendStatus(requested, CUDA)

@@ -24,14 +24,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from birda_tpu.constants import (
+from ..constants import (
     DEFAULT_MIN_CONFIDENCE,
     DEFAULT_TOP_K,
     compile_cache,
 )
-from birda_tpu.errors import ClassifierBuild
-from birda_tpu.errors import Inference as InferenceErr
-from birda_tpu.inference.geomodel_filter import Prediction
+from ..errors import ClassifierBuild
+from ..errors import Inference as InferenceErr
+from .geomodel_filter import Prediction
 
 from ..models.zoo import LoadedModel
 from .backend import BackendStatus, select_backend
@@ -256,7 +256,7 @@ class ChunkRunner:
                  step_samples: int, transport: str = "int16",
                  src_rate: Optional[int] = None,
                  src_chunk_samples: Optional[int] = None):
-        from birda_tpu.ops.resample import get_plan
+        from ..ops.resample import get_plan
 
         self.classifier = classifier
         self.batch_size = batch_size
@@ -373,7 +373,7 @@ class ChunkRunner:
                 f"{self.chunk_samples}")
         if self.transport != "int16":
             return chunk, np.float32(1.0)
-        from birda_tpu.native import audio as native_audio
+        from ..native import audio as native_audio
 
         if native_audio.available():
             payload, amax = native_audio.quantize_int16(chunk)

@@ -1,6 +1,6 @@
 """ONNX graph -> PyTorch function: the port of ``birda_tpu/onnx/lowering.py``.
 
-A parsed :class:`~birda_tpu.onnx.proto.Model` runs node by node over an
+A parsed :class:`~birda_tpu_torch.onnx.proto.Model` runs node by node over an
 environment of values, the same design as the JAX evaluator:
 
 - Host constants stay numpy. A node whose inputs are all host values is
@@ -18,12 +18,15 @@ environment of values, the same design as the JAX evaluator:
   promotes a bf16 tensor to float32 (``torch.promote_types`` on both
   dtypes), Python scalars stay weak.
 
-The op set is what the full-scale BirdNET v2.4 / v3.0 graphs
-(``birda_tpu.onnx.fullscale``) emit, plus the fused spectrogram front-end
-``BirdaFusedMelFrontend`` that :func:`maybe_fuse_frontend` splices in for
-bf16 compute; it runs through the hand-written CUDA kernel
-(``ops/stft_conv.py::fused_logmel``). A graph outside the op set fails at
-load with the full list (``preflight_or_raise``).
+The op set is what the full-scale BirdNET v2.4 / v3.0 and Perch v2 graphs
+(:mod:`birda_tpu_torch.onnx.fullscale`) emit, plus the fused spectrogram
+front-end ``BirdaFusedMelFrontend`` that :func:`maybe_fuse_frontend` splices
+in for bf16 compute. In bf16 two hand-written CUDA kernels carry the
+front-ends: the fused node runs ``ops/stft_conv.py::fused_logmel``, and a
+single-channel long-kernel Conv1d the fusion pass did not take (the unfused
+Conv1d-STFT, Perch v2's framing conv) runs ``ops/stft_conv.py::conv1d_stft``.
+A graph outside the op set fails at load with the full list
+(``preflight_or_raise``).
 """
 
 from __future__ import annotations
@@ -35,18 +38,40 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from birda_tpu.onnx.lowering import (
-    LIFT_PARAM_BYTES,
-    UnsupportedOnnxOp,
-    _autopad_amounts,
-    _constant_payload,
-)
-from birda_tpu.onnx.proto import Model, load_model
-
 from ..ops import stft_conv
+# The preflight reads the lowering's Constant-folding rule by this name.
+from .proto import Model, load_model
+from .proto import constant_payload as _constant_payload
 
 __all__ = ["OnnxFunction", "UnsupportedOnnxOp", "lower",
            "maybe_fuse_frontend"]
+
+#: Float initializers at least this large are lifted out of the host
+#: constants into :attr:`OnnxFunction.params`: each is carried to the card
+#: once (cast to bf16 once on the bf16 route) and shared by every batch
+#: shape. Smaller ones (shape vectors, scalars, BatchNormalization vectors)
+#: stay host numpy, so shape arithmetic folds on the host. 64 KiB lifts every
+#: conv and matmul weight of the shipped graphs and the same set of names as
+#: the JAX lowering, so a params dict carries between the two packages.
+LIFT_PARAM_BYTES = 1 << 16
+
+
+class UnsupportedOnnxOp(NotImplementedError):
+    pass
+
+
+def _autopad_amounts(op_shape, kernel, strides, dilations, mode):
+    """SAME_UPPER/SAME_LOWER pad amounts per spatial dim."""
+    pads = []
+    for dim, k, s, d in zip(op_shape, kernel, strides, dilations):
+        eff_k = (k - 1) * d + 1
+        out = -(-dim // s)
+        total = max(0, (out - 1) * s + eff_k - dim)
+        if mode == b"SAME_LOWER":
+            pads.append((total - total // 2, total // 2))
+        else:
+            pads.append((total // 2, total - total // 2))
+    return pads
 
 
 def _is_host(x) -> bool:
@@ -114,6 +139,8 @@ class _Evaluator:
         self._bn_folds: dict[str, tuple] = {}
         #: Fused front-end kernel layouts: (id(w), id(fb)) -> (w, fb, layout).
         self._logmel_layouts: dict[tuple, tuple] = {}
+        #: Conv1d-STFT kernel weight layouts: (id(w), device) -> (w, layout).
+        self._conv1d_layouts: dict[tuple, tuple] = {}
 
     # -- execution ----------------------------------------------------------
 
@@ -248,6 +275,26 @@ class _Evaluator:
             return (1.0 / (1.0 + np.exp(-z))).astype(np.float32)
         return torch.sigmoid(x)
 
+    def _softmax_axes(self, node, x) -> tuple:
+        """Opset >= 13: softmax along one axis (default -1). Opset < 13:
+        the input is coerced to 2-D at ``axis`` (default 1) and softmax
+        runs over the flattened trailing block — equivalent to reducing
+        jointly over every axis from ``axis`` on."""
+        if 0 < self.opset < 13:
+            ax = node.attr("axis", 1) % x.ndim
+            return tuple(range(ax, x.ndim))
+        return (node.attr("axis", -1) % x.ndim,)
+
+    def op_Softmax(self, node, x):
+        """Max-subtracted softmax in the input's dtype (bf16 in, bf16 out,
+        as ``jax.numpy`` computes it)."""
+        axes = self._softmax_axes(node, x)
+        if _is_host(x):
+            e = np.exp(x - np.max(x, axis=axes, keepdims=True))
+            return e / e.sum(axis=axes, keepdims=True)
+        e = torch.exp(x - x.amax(dim=axes, keepdim=True))
+        return e / e.sum(dim=axes, keepdim=True)
+
     # -- shape / structure ---------------------------------------------------
 
     def op_Flatten(self, node, x):
@@ -260,6 +307,18 @@ class _Evaluator:
         if _is_host(x):
             return np.transpose(x, perm)
         return x.permute(*(perm or reversed(range(x.ndim))))
+
+    def op_Squeeze(self, node, x, axes=None):
+        """Axes from the input (opset 13 on), else the attribute; none
+        given squeezes every unit axis."""
+        if axes is None:
+            axes = node.attr("axes")
+        if axes is None:
+            axes = [i for i, s in enumerate(x.shape) if s == 1]
+        axes = tuple(int(a) % x.ndim for a in np.asarray(axes).reshape(-1))
+        if _is_host(x):
+            return np.squeeze(x, axis=axes)
+        return x.squeeze(axes) if axes else x
 
     def op_Unsqueeze(self, node, x, axes=None):
         if axes is None:
@@ -428,9 +487,23 @@ class _Evaluator:
                 and dilations == [1] and w.shape[2] >= 256
                 and pads == [(0, 0)]):
             # Conv1d-STFT form (single input channel, long kernel, big
-            # stride): strided frames as an unfold view times the DFT
-            # matrix, one plain matmul.
+            # stride: the unfused windowed DFT, Perch v2's framer).
             k, hop = w.shape[2], strides[0]
+            if self.compute_dtype == torch.bfloat16:
+                # The hand-written kernel (bf16 operands, fp32 sums, bf16
+                # [B, C, T] out); the bias joins after it in bf16, as on
+                # the JAX package's kernel path.
+                layout = self._conv1d_layout(w, dev) if dev.type == "cuda" \
+                    else None
+                out = stft_conv.conv1d_stft(
+                    self._tensor(x, dev)[:, 0, :],
+                    self._tensor(w, dev)[:, 0, :], hop, prepared=layout)
+                if b is not None:
+                    out = out + self._tensor(b, dev, out.dtype).reshape(
+                        1, -1, 1)
+                return out
+            # fp32: strided frames as an unfold view times the weight
+            # matrix, one plain matmul (the JAX fp32 route's gather form).
             xx, wm = self._mm_cast(dev, x[:, 0, :], w[:, 0, :])
             frames = xx.unfold(-1, k, hop)  # [B, T, k]
             out = self._contract(lambda f, m: torch.matmul(f, m.T),
@@ -453,7 +526,7 @@ class _Evaluator:
 
     def op_BirdaFusedMelFrontend(self, node, x, w, fb):
         """The fused spectrogram front-end spliced in by
-        :func:`birda_tpu.onnx.fuse.fuse_mel_frontend`: windowed-DFT conv,
+        :func:`birda_tpu_torch.onnx.fuse.fuse_mel_frontend`: windowed-DFT conv,
         power, mel projection and log in one CUDA kernel
         (``ops/stft_conv.py::fused_logmel``). ``x`` is the conv input
         ``[B, 1, S]`` (the STFT-op spelling: ``[B, S]`` or ``[B, S, 1]``);
@@ -471,6 +544,17 @@ class _Evaluator:
         return stft_conv.fused_logmel(sig, wm, self._tensor(fb, dev),
                                       hop=hop, eps=eps, prepared=layout)
 
+    def _conv1d_layout(self, w, device):
+        """The Conv1d-STFT kernel's layout of this conv's weight, made once
+        per weight."""
+        key = (id(w), device)
+        hit = self._conv1d_layouts.get(key)
+        if hit is None or hit[0] is not w:
+            layout = stft_conv.prepare_conv1d_weights(
+                self._tensor(w, device)[:, 0, :])
+            hit = self._conv1d_layouts[key] = (w, layout)
+        return hit[1]
+
     def _logmel_layout(self, w, fb, device):
         """The kernel's layout of this front-end's weights, made once per
         (weight, filterbank) pair."""
@@ -481,6 +565,33 @@ class _Evaluator:
                 self._tensor(w, device)[:, 0, :], self._tensor(fb, device))
             hit = self._logmel_layouts[key] = (w, fb, layout)
         return hit[2]
+
+    # -- signal --------------------------------------------------------------
+
+    def op_DFT(self, node, x, dft_length=None, axis=None):
+        """ONNX DFT as a library FFT in float32 (cuFFT on the card), the
+        JAX evaluator's semantics: the real part of a ``[..., 1|2]`` input,
+        ``axis`` from the input (opset 20) else the attribute, ``[..., 2]``
+        real/imaginary float32 out."""
+        onesided = node.attr("onesided", 0)
+        inverse = node.attr("inverse", 0)
+        ax = int(np.asarray(axis).reshape(())) if axis is not None \
+            else node.attr("axis", 1)
+        if inverse:
+            raise UnsupportedOnnxOp("inverse DFT not supported")
+        n = int(np.asarray(dft_length).reshape(())) \
+            if dft_length is not None else None
+        xr = x[..., 0] if x.shape[-1] in (1, 2) else x
+        if _is_host(xr):
+            xr = np.asarray(xr)
+            out = np.fft.rfft(xr, n=n, axis=ax) if onesided \
+                else np.fft.fft(xr, n=n, axis=ax)
+            return np.stack([out.real, out.imag], axis=-1).astype(np.float32)
+        if xr.dtype not in (torch.float32, torch.float64):
+            xr = xr.float()  # the FFT takes no bf16, as in jax
+        out = torch.fft.rfft(xr, n=n, dim=ax) if onesided \
+            else torch.fft.fft(xr, n=n, dim=ax)
+        return torch.view_as_real(out).float()
 
     # -- normalization -------------------------------------------------------
 
@@ -526,11 +637,12 @@ def lower(model: Model | bytes | str, compute_dtype=None) -> "OnnxFunction":
 def maybe_fuse_frontend(model: Model, compute_dtype) -> int:
     """Splice the fused spectrogram front-end into ``model`` when compute is
     bf16, on any device (the kernel's plain version serves the CPU); the
-    fp32 route keeps the node-by-node graph. Reuses
-    :func:`birda_tpu.onnx.fuse.fuse_mel_frontend` unchanged."""
+    fp32 route keeps the node-by-node graph. The pass is
+    :func:`birda_tpu_torch.onnx.fuse.fuse_mel_frontend`, the JAX package's
+    pass as it is."""
     if compute_dtype != torch.bfloat16:
         return 0
-    from birda_tpu.onnx.fuse import fuse_mel_frontend
+    from .fuse import fuse_mel_frontend
 
     return fuse_mel_frontend(model.graph)
 
@@ -557,7 +669,7 @@ class OnnxFunction:
         )
         if getattr(self._eval, "opset", 0) == 0:
             self._eval.opset = model.opset
-        from birda_tpu.onnx.preflight import preflight_or_raise
+        from .preflight import preflight_or_raise
 
         preflight_or_raise(model, evaluator=self._eval)
         init_names = set(self.graph.initializers)
@@ -578,16 +690,24 @@ class OnnxFunction:
                 self.params[name] = self._eval.const.pop(name)
 
     def prepare(self, params: dict[str, torch.Tensor]) -> None:
-        """Lay out every fused front-end's weights for its CUDA kernel now
-        (once, at load) rather than on the first call."""
+        """Lay out the weights of every front-end that runs a CUDA kernel
+        now (once, at load) rather than on the first call: each fused
+        front-end's DFT weight and filterbank, and, in bf16, each
+        single-channel long-kernel Conv1d weight."""
+        bf16 = self._eval.compute_dtype == torch.bfloat16
         for node in self.graph.nodes:
-            if node.op_type != "BirdaFusedMelFrontend":
-                continue
-            w, fb = (params.get(n, self._eval.const.get(n))
-                     for n in node.inputs[1:3])
-            dev = _device_of(w, fb)
-            if dev.type == "cuda":
-                self._eval._logmel_layout(w, fb, dev)
+            if node.op_type == "BirdaFusedMelFrontend":
+                w, fb = (params.get(n, self._eval.const.get(n))
+                         for n in node.inputs[1:3])
+                dev = _device_of(w, fb)
+                if dev.type == "cuda":
+                    self._eval._logmel_layout(w, fb, dev)
+            elif node.op_type == "Conv" and bf16 and len(node.inputs) > 1:
+                w = params.get(node.inputs[1])
+                if (isinstance(w, torch.Tensor) and w.device.type == "cuda"
+                        and w.ndim == 3 and w.shape[1] == 1
+                        and w.shape[2] >= 256):
+                    self._eval._conv1d_layout(w, w.device)
 
     def __call__(self, *args, params=None, **feeds):
         if args:

@@ -25,7 +25,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 #: Kernel sources of the package, one shared library each.
-SOURCES = ("fused_logmel",)
+SOURCES = ("fused_logmel", "conv1d_stft")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,8 +1,10 @@
-"""Device resampler: the PyTorch port of ``birda_tpu/ops/resample.py``.
+"""Polyphase rational resampling: the PyTorch port of
+``birda_tpu/ops/resample.py``.
 
-Same plan, same filter, same two forms as the JAX module, whose jax-free
-design code (:func:`get_plan`, :func:`_design_lowpass`, :func:`_design_len`)
-is imported as it is:
+The plan and filter design (:class:`ResamplePlan`, :func:`get_plan`) and the
+host path (:func:`resample_numpy`, used by the decoders through
+:mod:`birda_tpu_torch.audio.resample`) are the JAX module's numpy code,
+copied as it is. The device resampler has the JAX module's two forms:
 
 - :func:`_device_fn`: upsample-filter-decimate as one strided convolution
   over the L-dilated signal, for small ratios (48 kHz <-> 32 kHz);
@@ -10,24 +12,121 @@ is imported as it is:
   ``[W, L]`` matrix per L outputs (44.1 kHz -> 48 kHz).
 
 Both accumulate in fp32 with TF32 off, so they match
-:func:`birda_tpu.ops.resample.resample_numpy` to fp32 rounding.
+:func:`resample_numpy` to fp32 rounding.
+
+Math: for target/source ratio reduced to L/M, upsample-by-L -> lowpass ->
+downsample-by-M collapses to
+
+    y[n] = sum_t H[p_n, t] * x[b_n - t],   q = n*M + (K-1)/2,
+    p_n = q mod L,  b_n = q div L,         H[p, t] = h[p + t*L]
+
+with h a Kaiser-windowed sinc (cutoff ``1/max(L,M)`` of the upsampled
+Nyquist, gain L).
 """
 
 from __future__ import annotations
 
 import functools
+from math import ceil, gcd
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from birda_tpu.ops.resample import (
-    MAX_DEVICE_RATIO,
-    _design_len,
-    _design_lowpass,
-    get_plan,
-)
+#: Filter half-length in units of max(L, M) — larger = sharper transition.
+HALF_LEN_MULT = 12
+#: Kaiser window beta — ~100 dB stopband at this length.
+KAISER_BETA = 10.0
 
+
+class ResamplePlan:
+    """Precomputed polyphase plan for one (from_rate, to_rate) pair."""
+
+    __slots__ = ("from_rate", "to_rate", "L", "M", "H", "T", "identity")
+
+    def __init__(self, from_rate: int, to_rate: int):
+        self.from_rate = int(from_rate)
+        self.to_rate = int(to_rate)
+        self.identity = from_rate == to_rate
+        if self.identity:
+            self.L = self.M = 1
+            self.T = 0
+            self.H = np.zeros((1, 1), np.float32)
+            return
+        g = gcd(self.from_rate, self.to_rate)
+        self.L = self.to_rate // g
+        self.M = self.from_rate // g
+        h = _design_lowpass(self.L, self.M)
+        K = len(h)
+        self.T = ceil(K / self.L)
+        hp = np.zeros(self.T * self.L, np.float64)
+        hp[:K] = h
+        # H[p, t] = h[p + t*L]
+        self.H = hp.reshape(self.T, self.L).T.astype(np.float32).copy()
+
+    def out_len(self, in_len: int) -> int:
+        if self.identity:
+            return in_len
+        return ceil(in_len * self.L / self.M)
+
+    def indices(self, in_len: int) -> tuple[np.ndarray, np.ndarray]:
+        """(phase, base) index vectors for an input of ``in_len`` samples."""
+        n = np.arange(self.out_len(in_len), dtype=np.int64)
+        # Offset by the true filter centre (not the zero-padded length) so the
+        # output is zero-phase.
+        K = _design_len(self.L, self.M)
+        q = n * self.M + (K - 1) // 2
+        return (q % self.L).astype(np.int32), (q // self.L).astype(np.int32)
+
+
+def _design_len(L: int, M: int) -> int:
+    return 2 * HALF_LEN_MULT * max(L, M) + 1
+
+
+@functools.lru_cache(maxsize=64)
+def _design_lowpass(L: int, M: int) -> np.ndarray:
+    """Kaiser-windowed sinc lowpass with gain L (float64 design precision)."""
+    max_rate = max(L, M)
+    half_len = HALF_LEN_MULT * max_rate
+    K = 2 * half_len + 1
+    n = np.arange(K, dtype=np.float64) - half_len
+    cutoff = 1.0 / max_rate
+    h = np.sinc(n * cutoff) * cutoff * np.kaiser(K, KAISER_BETA)
+    return h * (L / h.sum())
+
+
+@functools.lru_cache(maxsize=64)
+def get_plan(from_rate: int, to_rate: int) -> ResamplePlan:
+    return ResamplePlan(from_rate, to_rate)
+
+
+# ---------------------------------------------------------------------------
+# Host (numpy) execution
+# ---------------------------------------------------------------------------
+
+def resample_numpy(x: np.ndarray, from_rate: int, to_rate: int) -> np.ndarray:
+    """Resample a 1-D float32 signal on the host."""
+    plan = get_plan(from_rate, to_rate)
+    if plan.identity:
+        return np.asarray(x, np.float32)
+    x = np.asarray(x, np.float32)
+    p, b = plan.indices(len(x))
+    pad = plan.T
+    xp = np.concatenate(
+        [np.zeros(pad, np.float32), x, np.zeros(pad + plan.T, np.float32)]
+    )
+    idx = b[:, None] - np.arange(plan.T, dtype=np.int64)[None, :] + pad
+    return np.einsum("nt,nt->n", xp[idx], plan.H[p]).astype(np.float32)
+
+
+#: Above this upsample factor the dilated-conv form wastes too many MACs on
+#: implicit zeros; the blocked-matmul form takes over.
+MAX_DEVICE_RATIO = 8
+
+
+# ---------------------------------------------------------------------------
+# Device (torch) execution
+# ---------------------------------------------------------------------------
 
 class _Constant:
     """A numpy constant with one tensor copy per device."""

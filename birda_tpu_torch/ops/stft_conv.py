@@ -1,15 +1,24 @@
-"""Fused log-mel front-end: the Hopper port of ``birda_tpu/ops/stft_conv.py``.
+"""Spectrogram front-end kernels: the Hopper port of
+``birda_tpu/ops/stft_conv.py``.
 
-:func:`fused_logmel` computes what the Pallas kernel ``_fused_logmel`` does
-on the TPU — windowed-DFT matmul with fp32 accumulation, power from the fp32
-accumulator rounded to bf16, mel projection with fp32 accumulation,
-``log(mel + eps)`` out as bf16 — through the CUDA kernel in
-``csrc/fused_logmel.cu`` for a CUDA tensor, and through its plain PyTorch
-version :func:`fused_logmel_reference` for a CPU tensor.
+Two wrappers, one for each of the JAX module's Pallas kernels. Each launches
+its hand-written CUDA kernel for a CUDA tensor (or raises) and takes its
+plain PyTorch version for a CPU tensor:
 
-The kernel takes its constants in a padded, tiled layout
-(:func:`prepare_logmel_weights`): the graph's weights are fixed, so the
-lowering prepares that layout once per weight pair, not per call.
+- :func:`fused_logmel` computes what ``_fused_logmel`` does on the TPU —
+  windowed-DFT matmul with fp32 accumulation, power from the fp32
+  accumulator rounded to bf16, mel projection with fp32 accumulation,
+  ``log(mel + eps)`` out as bf16 — through ``csrc/fused_logmel.cu``; plain
+  version :func:`fused_logmel_reference`.
+- :func:`conv1d_stft` computes what ``_conv1d_stft`` does — the strided
+  single-channel Conv1d ``[B, S] x [C, K] -> [B, C, T]`` with bf16 operands,
+  fp32 accumulation and bf16 out — through ``csrc/conv1d_stft.cu``; plain
+  version :func:`conv1d_stft_reference`.
+
+The kernels take their constants in a padded, tiled layout
+(:func:`prepare_logmel_weights`, :func:`prepare_conv1d_weights`): the
+graph's weights are fixed, so the lowering prepares each layout once per
+weight, not per call.
 """
 
 from __future__ import annotations
@@ -28,24 +37,47 @@ LAUNCHES: Counter = Counter()
 MAX_MELS = 256
 
 
-def _lib():
+#: ctypes signatures of each kernel library's launch function.
+_SIGNATURES = {
+    "fused_logmel": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                     + [ctypes.c_float, ctypes.c_void_p]),
+    "conv1d_stft": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+                    + [ctypes.c_void_p]),
+}
+
+
+def _lib(name: str):
+    """The loaded kernel library ``csrc/<name>.cu`` (built on first use),
+    with every exported function's signature declared."""
     from ._build import load
 
-    lib = load("fused_logmel")
-    if lib.birda_fused_logmel.argtypes is None:
-        lib.birda_fused_logmel.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-            + [ctypes.c_float, ctypes.c_void_p])
-        lib.birda_fused_logmel.restype = ctypes.c_int
+    lib = load(name)
+    launch = getattr(lib, f"birda_{name}")
+    if launch.argtypes is None:
+        for tile in ("t", "bins", "c", "k"):
+            fn = getattr(lib, f"birda_{name}_tile_{tile}", None)
+            if fn is not None:
+                fn.argtypes, fn.restype = [], ctypes.c_int
+        launch.restype = ctypes.c_int
+        launch.argtypes = _SIGNATURES[name]
     return lib
 
 
 def _tiles() -> tuple[int, int, int]:
-    """(frames, bins, K) tile sizes compiled into the kernel."""
-    lib = _lib()
+    """(frames, bins, K) tile sizes compiled into the fused kernel."""
+    lib = _lib("fused_logmel")
     return (lib.birda_fused_logmel_tile_t(),
             lib.birda_fused_logmel_tile_bins(),
             lib.birda_fused_logmel_tile_k())
+
+
+def _conv_tiles() -> tuple[int, int, int]:
+    """(frames, channels, K) tile sizes compiled into the Conv1d-STFT
+    kernel."""
+    lib = _lib("conv1d_stft")
+    return (lib.birda_conv1d_stft_tile_t(),
+            lib.birda_conv1d_stft_tile_c(),
+            lib.birda_conv1d_stft_tile_k())
 
 
 @dataclass(frozen=True)
@@ -150,7 +182,7 @@ def fused_logmel(x: torch.Tensor, w: torch.Tensor, fb: torch.Tensor,
         xp[:, :s] = x
         out = torch.empty((b, t, m), dtype=torch.bfloat16, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _lib().birda_fused_logmel(
+        rc = _lib("fused_logmel").birda_fused_logmel(
             xp.data_ptr(), prepared.w.data_ptr(), prepared.fb.data_ptr(),
             out.data_ptr(), b, stride, hop, t, m, prepared.fb.shape[1],
             n_bin_tiles, n_kc, float(eps), stream)
@@ -158,4 +190,100 @@ def fused_logmel(x: torch.Tensor, w: torch.Tensor, fb: torch.Tensor,
         raise RuntimeError(f"fused_logmel kernel launch failed: CUDA error "
                            f"{rc}")
     LAUNCHES["fused_logmel"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Conv1d-STFT: the strided single-channel Conv1d the fusion pass did not take
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Conv1dWeights:
+    """The Conv1d-STFT kernel's layout of one conv weight ``[C, K]``.
+
+    ``w``: ``[n_c_tiles, n_k_chunks, tile_k, tile_c]`` bf16 — for each
+    channel tile and K chunk, the chunk transposed to ``[k, c]``,
+    zero-padded past ``c`` and ``k``.
+    """
+
+    w: torch.Tensor
+    c: int
+    k: int
+
+
+def prepare_conv1d_weights(w: torch.Tensor) -> Conv1dWeights:
+    """Lay out ``w [C, K]`` for the CUDA kernel."""
+    if w.ndim != 2:
+        raise ValueError(f"conv weight must be [C, K], got {tuple(w.shape)}")
+    c, k = w.shape
+    _, tc, tk = _conv_tiles()
+    nct, nkc = -(-c // tc), -(-k // tk)
+    padded = torch.zeros((nct * tc, nkc * tk), dtype=torch.bfloat16,
+                         device=w.device)
+    padded[:c, :k] = w
+    # [nct, tc, nkc, tk] -> [nct, nkc, tk, tc]
+    wp = padded.view(nct, tc, nkc, tk).permute(0, 2, 3, 1).contiguous()
+    return Conv1dWeights(w=wp, c=c, k=k)
+
+
+def conv1d_stft_reference(x: torch.Tensor, w: torch.Tensor, hop: int
+                          ) -> torch.Tensor:
+    """Plain PyTorch version: ``[B, S] x [C, K] -> [B, C, T]`` bf16.
+
+    The same bf16 operands as the kernel, products summed in fp32: frames
+    unfolded from the bf16 signal, an fp32 matmul with the bf16-rounded
+    weight, the result rounded to bf16.
+    """
+    k = w.shape[1]
+    frames = x.to(torch.bfloat16).float().unfold(-1, k, hop)  # [B, T, K]
+    out = torch.matmul(frames, w.to(torch.bfloat16).float().T)
+    return out.transpose(1, 2).to(torch.bfloat16)
+
+
+def conv1d_stft(x: torch.Tensor, w: torch.Tensor, hop: int,
+                prepared: Conv1dWeights | None = None) -> torch.Tensor:
+    """``[B, S] x [C, K] -> [B, C, T]`` bf16 strided windowed matmul,
+    ``T = (S - K) // hop + 1``: ``out[b, c, t] = sum_k x[b, t*hop + k] *
+    w[c, k]``.
+
+    A CUDA tensor launches the kernel (``prepared`` is the layout of ``w``
+    from :func:`prepare_conv1d_weights`, made here when absent) or raises;
+    a CPU tensor takes :func:`conv1d_stft_reference`.
+    """
+    if x.device.type == "cpu":
+        return conv1d_stft_reference(x, w, hop)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv1d_stft: unsupported device {x.device}")
+    if x.ndim != 2:
+        raise ValueError(f"conv1d_stft: signal must be [B, S], got "
+                         f"{tuple(x.shape)}")
+    if prepared is None:
+        prepared = prepare_conv1d_weights(w)
+    if prepared.w.device != x.device:
+        raise ValueError(f"conv1d_stft: w on {prepared.w.device}, signal "
+                         f"on {x.device}")
+    b, s = x.shape
+    c, k = prepared.c, prepared.k
+    if s < k:
+        raise ValueError(f"conv1d_stft: signal of {s} samples is shorter "
+                         f"than the {k}-sample window")
+    tt, _, _ = _conv_tiles()
+    t = (s - k) // hop + 1
+    n_c_tiles, n_kc = prepared.w.shape[0], prepared.w.shape[1]
+    # Every frame of the last frame tile reads its K samples inside the
+    # padded row; rows start on 16-B boundaries.
+    stride = max(s, (-(-t // tt) * tt - 1) * hop + k)
+    stride = -(-stride // 8) * 8
+    with torch.cuda.device(x.device):
+        xp = torch.zeros((b, stride), dtype=torch.bfloat16, device=x.device)
+        xp[:, :s] = x
+        out = torch.empty((b, c, t), dtype=torch.bfloat16, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _lib("conv1d_stft").birda_conv1d_stft(
+            xp.data_ptr(), prepared.w.data_ptr(), out.data_ptr(), b, stride,
+            hop, k, t, c, n_c_tiles, n_kc, stream)
+    if rc != 0:
+        raise RuntimeError(f"conv1d_stft kernel launch failed: CUDA error "
+                           f"{rc}")
+    LAUNCHES["conv1d_stft"] += 1
     return out

@@ -5,8 +5,8 @@ device resolution, species-list precedence, smart batch-size defaults,
 warm-up, the per-file loop with skip/lock/stale-reclaim/error-isolation
 semantics, output combining and the run summary — on the PyTorch
 classifier. The JAX module imports jax at load, so its flow is ported here
-with the same names; everything it calls that is host code is imported from
-``birda_tpu`` as it is.
+with the same names; the host code it calls is the port's own copy of the
+JAX package's modules (same subpackage and module names).
 
 Not yet ported, and refused with a typed error rather than run
 differently: ``--precision mixed``/``int8``, ``synthetic:`` model paths,
@@ -22,23 +22,23 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Optional
 
-from birda_tpu import constants
-from birda_tpu.config import range_filter as rf_cfg
-from birda_tpu.config.types import Config, InferenceDevice, ModelConfig, ModelType
-from birda_tpu.config.validate import get_model, validate_model_config
-from birda_tpu.errors import (
+from . import constants
+from .config import range_filter as rf_cfg
+from .config.types import Config, InferenceDevice, ModelConfig, ModelType
+from .config.validate import get_model, validate_model_config
+from .errors import (
     BirdaError,
     ClassifierBuild,
     ConfigValidation,
     FileLocked,
 )
-from birda_tpu.inference.range_filter import read_geomodel_labels
-from birda_tpu.locking.file_lock import FileLock
-from birda_tpu.models import contracts
-from birda_tpu.output import json_envelope as env
-from birda_tpu.output.json_envelope import FileStatus, PipelineStatus
-from birda_tpu.pipeline.config import ProcessingConfig
-from birda_tpu.pipeline.coordinator import (
+from .inference.range_filter import read_geomodel_labels
+from .locking.file_lock import FileLock
+from .models import contracts
+from .output import json_envelope as env
+from .output.json_envelope import FileStatus, PipelineStatus
+from .pipeline.config import ProcessingConfig
+from .pipeline.coordinator import (
     OutputFormat,
     ProcessCheck,
     collect_input_files,
@@ -286,7 +286,7 @@ def resolve_species_filter(options: AnalyzeOptions, config: Config
     slist_path = options.slist or config.defaults.species_list_file
     if slist_path is None:
         return None
-    from birda_tpu.utils.species_list import read_species_list
+    from .utils.species_list import read_species_list
 
     species = set(read_species_list(slist_path))
     logger.info("Species list filter enabled: %d species loaded",
@@ -328,7 +328,7 @@ def analyze_files(options: AnalyzeOptions, config: Config,
 
     files = collect_input_files(options.inputs)
     if not files:
-        from birda_tpu.errors import NoValidAudioFiles
+        from .errors import NoValidAudioFiles
 
         raise NoValidAudioFiles()
 
@@ -345,7 +345,7 @@ def analyze_files(options: AnalyzeOptions, config: Config,
     bsg_processor = None
     bsg_params = None
     if mc.bsg_calibration is not None:
-        from birda_tpu.inference.bsg import BsgPostProcessor
+        from .inference.bsg import BsgPostProcessor
 
         bsg_processor = BsgPostProcessor.from_paths(
             mc.bsg_calibration, mc.bsg_migration, mc.bsg_distribution_maps)
@@ -416,7 +416,7 @@ def _emit_file_started(reporter, classifier, input_path, index,
     est_segments = 0
     duration = None
     try:
-        from birda_tpu.audio.decode import get_audio_duration
+        from .audio.decode import get_audio_duration
 
         duration = get_audio_duration(input_path)
         seg = classifier.segment_duration
@@ -532,8 +532,8 @@ def process_all_files(
 
 def _combine_outputs(files, options, formats):
     """Combine per-file outputs into single tables (``--combine``)."""
-    from birda_tpu.constants import UTF8_BOM, combined_filenames
-    from birda_tpu.pipeline.coordinator import output_path_for
+    from .constants import UTF8_BOM, combined_filenames
+    from .pipeline.coordinator import output_path_for
 
     out_root = options.output_dir or output_dir_for(files[0], None)
 
@@ -545,7 +545,7 @@ def _combine_outputs(files, options, formats):
         ]
 
     if OutputFormat.PARQUET in formats:
-        from birda_tpu.output.parquet import combine_parquet_files
+        from .output.parquet import combine_parquet_files
 
         parts = parts_of(OutputFormat.PARQUET)
         if parts:

@@ -22,20 +22,20 @@ from pathlib import Path
 
 import numpy as np
 
-from birda_tpu import constants
-from birda_tpu.audio.decode import (
+from .. import constants
+from ..audio.decode import (
     StreamingDecoder,
     emitted_window_count,
     normalize_window,
     put_abortable,
 )
-from birda_tpu.errors import BirdaError
-from birda_tpu.inference.watchdog import start_inference_watchdog
-from birda_tpu.locking.file_lock import FileLock
-from birda_tpu.output import json_envelope as env
-from birda_tpu.output.types import Detection
-from birda_tpu.pipeline.config import ProcessingConfig
-from birda_tpu.pipeline.coordinator import OutputFormat, output_path_for
+from ..errors import BirdaError
+from ..inference.watchdog import start_inference_watchdog
+from ..locking.file_lock import FileLock
+from ..output import json_envelope as env
+from ..output.types import Detection
+from ..pipeline.config import ProcessingConfig
+from ..pipeline.coordinator import OutputFormat, output_path_for
 
 from ..inference.classifier import BirdClassifier, InferenceOptions
 
@@ -225,7 +225,7 @@ def process_file(classifier: BirdClassifier, config: ProcessingConfig) -> Proces
             decoder.exact_seek, est_segments,
         )
         if use_parallel:
-            from birda_tpu.audio.parallel_decode import spawn_parallel_decode
+            from ..audio.parallel_decode import spawn_parallel_decode
 
             producer = spawn_parallel_decode(
                 config.input_path, tx, _SENTINEL, decoder.total_frames,
@@ -249,7 +249,7 @@ def process_file(classifier: BirdClassifier, config: ProcessingConfig) -> Proces
         resolved_bsg = config.bsg_params
         if (config.bsg_processor is not None and resolved_bsg is not None
                 and resolved_bsg[2] is None):
-            from birda_tpu.utils.date import auto_detect_day_of_year
+            from ..utils.date import auto_detect_day_of_year
 
             try:
                 day = auto_detect_day_of_year(config.input_path)
@@ -376,7 +376,7 @@ def process_file(classifier: BirdClassifier, config: ProcessingConfig) -> Proces
             if isinstance(item, BaseException):
                 if isinstance(item, BirdaError):
                     raise item
-                from birda_tpu.errors import AudioDecode
+                from ..errors import AudioDecode
 
                 raise AudioDecode(str(config.input_path), str(item)) from item
             samples, start_sample = item
@@ -476,27 +476,27 @@ def _write_output(fmt: OutputFormat, detections: list[Detection],
                   config: ProcessingConfig, audio_duration: float) -> None:
     path = output_path_for(config.input_path, config.output_dir, fmt)
     if fmt == OutputFormat.CSV:
-        from birda_tpu.output.csv import CsvWriter
+        from ..output.csv import CsvWriter
 
         writer = CsvWriter(path, config.csv_columns, config.csv_bom_enabled)
     elif fmt == OutputFormat.RAVEN:
-        from birda_tpu.output.raven import RavenWriter
+        from ..output.raven import RavenWriter
 
         writer = RavenWriter(path)
     elif fmt == OutputFormat.AUDACITY:
-        from birda_tpu.output.audacity import AudacityWriter
+        from ..output.audacity import AudacityWriter
 
         writer = AudacityWriter(path)
     elif fmt == OutputFormat.KALEIDOSCOPE:
-        from birda_tpu.output.kaleidoscope import KaleidoscopeWriter
+        from ..output.kaleidoscope import KaleidoscopeWriter
 
         writer = KaleidoscopeWriter(path)
     elif fmt == OutputFormat.PARQUET:
-        from birda_tpu.output.parquet import ParquetWriter
+        from ..output.parquet import ParquetWriter
 
         writer = ParquetWriter(path, config.csv_columns)
     elif fmt == OutputFormat.JSON:
-        from birda_tpu.output.json_file import JsonResultWriter
+        from ..output.json_file import JsonResultWriter
 
         rf = config.range_filter_params
         writer = JsonResultWriter(

@@ -5,15 +5,23 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the hand-written kernels from ``birda_tpu_torch/csrc``, holds each
-against its plain PyTorch version at the main path's shapes, drives
-``birda_tpu_torch.api.analyze`` on the full-scale BirdNET v2.4 graph (random
-weights from a seed, bf16) over two generated 120 s recordings, checks that
-the main path went through the kernels, and compares the bf16 route with the
-fp32 route on one chunk. Each phase prints one JSON line; then come the
-kernel summary line and, last, ``{"ok": true, "device": {...}}``. Any failed
-check raises: the exit code is then non-zero and no result line is printed,
-as it is without a CUDA device or outside a checkout.
+It builds the hand-written kernels from ``birda_tpu_torch/csrc`` (one
+``nvcc`` each, all at once) and holds each against its plain PyTorch version
+at the main paths' shapes. Then it drives ``birda_tpu_torch.api.analyze`` on
+two full-width graphs with random weights from a seed, in bf16:
+
+- BirdNET v2.4 over two generated 120 s recordings (48 kHz; 44.1 kHz, which
+  runs the device resampler), through ``fused_logmel``;
+- Perch v2 over two generated 160 s recordings (32 kHz; 48 kHz, which runs
+  the device resampler), through ``conv1d_stft``.
+
+Each main path runs with the launch counts set to 0 just before it and read
+just after, and must have launched its kernel. Each model's bf16 route is
+compared with its fp32 route on one chunk. Each phase prints one JSON line;
+then come the card's name and power limit, the kernel summary line and, last,
+``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
+then non-zero and no result line is printed, as it is without a CUDA device
+or outside a checkout.
 """
 
 from __future__ import annotations
@@ -28,13 +36,28 @@ import wave
 from pathlib import Path
 
 #: Bounds: the JAX package's own on-chip log-mel bound
-#: (scripts/verify_kernels_tpu.py) and bf16-vs-fp32 score drift bound
-#: (tests/test_stft_kernel.py).
+#: (scripts/verify_kernels_tpu.py), its Conv1d-STFT kernel bound (max error
+#: over max |want|, tests/test_stft_kernel.py) and its bf16-vs-fp32 score
+#: drift bound (tests/test_stft_kernel.py).
 LOGMEL_Q99_BOUND = 5e-2
+CONV_REL_BOUND = 2e-2
 SCORE_DRIFT_BOUND = 5e-2
 BATCH = 32
 SEED = 1
 TIMING_ITERS = 20
+#: Chunk steps timed on the host clock, and chunk steps profiled.
+STEP_ITERS = 10
+PROFILE_STEPS = 3
+#: Perch v2's softmax over 14,795 classes gives random weights scores far
+#: below the default 0.1 confidence: its runs keep the top 5 of each segment
+#: above a floor of 1e-6, and its drift is taken relative to the largest
+#: score.
+PERCH_MIN_CONFIDENCE = 1e-6
+PERCH_TOP_K = 5
+#: One NVIDIA H100 SXM, from its published specification: HBM bytes per
+#: second and dense bf16 tensor-core operations per second.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
 
 
 def emit(obj) -> None:
@@ -63,6 +86,20 @@ def timed_ms(fn, iters: int = TIMING_ITERS) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def bound(n_bytes: int, flops: int) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the bf16 operations over the tensor-core rate."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / BF16_FLOP_PER_S * 1e3
+    return {"bytes": n_bytes, "flops": flops,
+            "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def write_wav(path: Path, x, rate: int) -> None:
@@ -101,7 +138,7 @@ def dft_weight(n_fft: int):
         .astype(np.float32)
 
 
-def kernel_phase(w24, fb24, hop24, eps, dev):
+def logmel_kernel_phase(w24, fb24, hop24, eps, dev):
     """fused_logmel against fused_logmel_reference at the main path's
     shapes (v2.4 at batch 16 and 32), the v3.0 geometry, and a T below
     one frame tile."""
@@ -135,11 +172,14 @@ def kernel_phase(w24, fb24, hop24, eps, dev):
         check(bool(torch.isfinite(got.float()).all()),
               f"{name}: non-finite log-mel")
         err = (got.float() - want.float()).abs().flatten()
+        bins, m = fb.shape
         rec = {"phase": "kernel", "kernel": "fused_logmel", "case": name,
                "shape": list(got.shape),
                "q99_abs_err": float(torch.quantile(err, 0.99)),
                "max_abs_err": float(err.max()),
-               "q99_bound": LOGMEL_Q99_BOUND}
+               "q99_bound": LOGMEL_Q99_BOUND,
+               **bound(nbytes(x, w, fb, got),
+                       2 * b * t * (w.shape[1] * w.shape[0] + bins * m))}
         check(rec["q99_abs_err"] < LOGMEL_Q99_BOUND,
               f"{name}: log-mel q99 error {rec['q99_abs_err']}")
         if timed:
@@ -152,24 +192,249 @@ def kernel_phase(w24, fb24, hop24, eps, dev):
     return results
 
 
-def main() -> int:
+def conv1d_kernel_phase(dev):
+    """conv1d_stft against conv1d_stft_reference at Perch v2's framer
+    shape (random and identity weights), the v2.4 unfused geometry, and a
+    T below one frame tile; timed beside ``F.conv1d`` in bf16, the one
+    PyTorch call that computes the same function."""
     import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from birda_tpu_torch.ops import stft_conv
+
+    rng = np.random.default_rng(SEED)
+    cases = [  # name, B, S, K, hop, C, weight, timed
+        ("perch_b32", BATCH, 160_000, 640, 320, 640, "random", True),
+        ("perch_identity", BATCH, 160_000, 640, 320, 640, "identity", True),
+        ("v24_geometry", 4, 144_000, 2048, 278, 2050, "random", True),
+        ("short_t", 2, 6_000, 2048, 278, 40, "random", False),
+    ]
+    results = {}
+    for name, b, s, k, hop, c, kind, timed in cases:
+        x = torch.from_numpy(
+            rng.normal(0, 0.1, (b, s)).astype(np.float32)).to(dev)
+        w = (torch.eye(k) if kind == "identity" else torch.from_numpy(
+            rng.normal(0, 0.02, (c, k)).astype(np.float32))).to(dev)
+        layout = stft_conv.prepare_conv1d_weights(w)
+        got = stft_conv.conv1d_stft(x, w, hop, prepared=layout)
+        torch.cuda.synchronize()
+        want = stft_conv.conv1d_stft_reference(x, w, hop)
+        t = (s - k) // hop + 1
+        check(tuple(got.shape) == (b, c, t), f"{name}: shape "
+              f"{tuple(got.shape)}")
+        err = float((got.float() - want.float()).abs().max())
+        rel = err / float(want.float().abs().max())
+        rec = {"phase": "kernel", "kernel": "conv1d_stft", "case": name,
+               "shape": list(got.shape), "max_abs_err": err,
+               "rel_err": rel, "rel_bound": CONV_REL_BOUND,
+               **bound(nbytes(x, got) + c * k * 2, 2 * b * t * k * c)}
+        check(rel < CONV_REL_BOUND, f"{name}: relative error {rel}")
+        if kind == "identity":
+            rec["bit_exact"] = bool(torch.equal(got, want))
+            check(rec["bit_exact"], f"{name}: not the bf16 frames exactly")
+        if timed:
+            xb = x.to(torch.bfloat16)[:, None, :]
+            wb = w.to(torch.bfloat16)[:, None, :]
+            rec["ms"] = timed_ms(lambda: stft_conv.conv1d_stft(
+                x, w, hop, prepared=layout))
+            rec["plain_ms"] = timed_ms(
+                lambda: stft_conv.conv1d_stft_reference(x, w, hop))
+            rec["library_ms"] = timed_ms(
+                lambda: F.conv1d(xb, wb, stride=hop))
+        emit(rec)
+        results[name] = rec
+    return results
+
+
+def write_graph(spec, tmp: Path):
+    """The full-scale graph of ``spec`` (random weights from ``SEED``), its
+    ONNX file and its labels file."""
+    from birda_tpu_torch.models.zoo import synthetic_labels
+    from birda_tpu_torch.onnx import fullscale
+
+    t0 = time.perf_counter()
+    graph = fullscale.cached_build(spec, seed=SEED)
+    onnx_path = tmp / f"{spec.name}.onnx"
+    onnx_path.write_bytes(graph.model_bytes)
+    labels = synthetic_labels(spec.num_classes)
+    labels_path = tmp / f"{spec.name}-labels.txt"
+    labels_path.write_text("\n".join(labels) + "\n")
+    emit({"phase": "fixture", "graph": spec.name,
+          "params": graph.param_count, "macs_per_segment": graph.macs,
+          "onnx_bytes": len(graph.model_bytes),
+          "seconds": time.perf_counter() - t0})
+    return graph, onnx_path, labels_path, labels
+
+
+def main_path(phase, kernel, wavs, onnx_path, labels_path, model_type,
+              **kw):
+    """``analyze`` in bf16 at batch 32 on the card, with the launch counts
+    set to 0 just before and read just after; checks the run went through
+    ``kernel`` and produced finite confidences in [0, 1] for every file."""
+    import numpy as np
+    import torch
+
+    from birda_tpu_torch.api import analyze
+    from birda_tpu_torch.ops import stft_conv
+
+    torch.cuda.reset_peak_memory_stats()
+    stft_conv.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    result = analyze(wavs, model_path=onnx_path, labels_path=labels_path,
+                     model_type=model_type, device="gpu", precision="bf16",
+                     batch_size=BATCH, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(stft_conv.LAUNCHES)
+    summary = result.summary or {}
+    rec = {"phase": phase, "backend": result.backend,
+           "exit_code": result.exit_code, "launches": launches,
+           "files": [{"file": f.path.name, "detections": len(f.detections),
+                      "error": f.error} for f in result.files],
+           "segments": summary.get("total_segments"),
+           "pipeline_ms": summary.get("duration_ms"),
+           "wall_s_with_load": wall,
+           "peak_device_memory_bytes": torch.cuda.max_memory_allocated()}
+    if summary.get("duration_ms"):
+        rec["segments_per_s"] = (summary["total_segments"]
+                                 / (summary["duration_ms"] / 1000))
+        rec["realtime_factor"] = summary["realtime_factor"]
+    emit(rec)
+    check(result.exit_code == 0, f"{phase}: analyze exit code")
+    check((result.backend or {}).get("actual") == "cuda",
+          f"{phase}: backend {result.backend}")
+    check(launches.get(kernel, 0) > 0,
+          f"{phase}: the main path never launched {kernel}")
+    check(len(result.files) == len(wavs) and all(
+        f.ok and f.detections for f in result.files),
+          f"{phase}: detections for every file")
+    check(all(0.0 <= d.confidence <= 1.0 and np.isfinite(d.confidence)
+              for d in result.detections),
+          f"{phase}: confidences in [0, 1]")
+    return launches
+
+
+def bf16_vs_fp32(phase, family, onnx_path, labels, wav, relative: bool,
+                 step_phase: str):
+    """One 32-row chunk through the bf16 route (the kernels) and the fp32
+    route (plain, TF32 off); the largest score drift, absolute or relative
+    to the largest fp32 score, within ``SCORE_DRIFT_BOUND``. The bf16 route
+    is also timed and profiled on that chunk (``step_phase``)."""
+    import numpy as np
+    import torch
+
+    from birda_tpu_torch.inference.classifier import BirdClassifier
+    from birda_tpu_torch.models.contracts import contract_for
+    from birda_tpu_torch.models.zoo import onnx_model
+
+    contract = contract_for(family)
+    n = contract.num_classes
+    seg = contract.sample_count
+    with wave.open(str(wav)) as w:
+        pcm = np.frombuffer(w.readframes(w.getnframes()), "<i2")
+    chunk = pcm[:(BATCH - 1) * seg + seg].astype(np.float32) / 32767.0
+    scores = {}
+    torch.cuda.reset_peak_memory_stats()
+    for precision, dtype in (("bf16", torch.bfloat16), ("fp32", None)):
+        model = onnx_model(onnx_path, contract, labels, dtype=dtype)
+        clf = BirdClassifier(model, device="cuda", min_confidence=0.0,
+                             top_k=n)
+        rows = clf.chunk_runner(BATCH, seg).predict_chunk(chunk, BATCH)
+        full = np.zeros((BATCH, n), np.float64)
+        for r, res in enumerate(rows):
+            for p in res.predictions:
+                full[r, p.index] = p.confidence
+        scores[precision] = full
+        if dtype is not None:
+            steady_step(step_phase, BirdClassifier(
+                model, device="cuda", min_confidence=0.0, top_k=5), chunk)
+        del clf, model
+    drift = float(np.abs(scores["bf16"] - scores["fp32"]).max())
+    top = float(scores["fp32"].max())
+    measured = drift / top if relative else drift
+    emit({"phase": phase, "rows": BATCH, "classes": n,
+          "max_score_drift": drift, "max_fp32_score": top,
+          "drift_over_max_score" if relative else "drift": measured,
+          "bound": SCORE_DRIFT_BOUND,
+          "top1_agreement": float(np.mean(scores["bf16"].argmax(1)
+                                          == scores["fp32"].argmax(1))),
+          "peak_device_memory_bytes": torch.cuda.max_memory_allocated()})
+    check(np.isfinite(measured) and measured <= SCORE_DRIFT_BOUND,
+          f"{phase}: bf16 score drift {measured}")
+
+
+def steady_step(phase, clf, chunk):
+    """The bf16 chunk step on a warm runner: host-clock time per step over
+    ``STEP_ITERS`` steps, then a ``torch.profiler`` window of
+    ``PROFILE_STEPS`` steps for the device's busy time (the union of the
+    kernels' spans), the launches per step and the kernels that take the
+    most device time."""
+    from collections import Counter
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    runner = clf.chunk_runner(BATCH, clf.sample_count)
+    for _ in range(2):
+        runner.predict_chunk(chunk, BATCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STEP_ITERS):
+        runner.predict_chunk(chunk, BATCH)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / STEP_ITERS * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_STEPS):
+            runner.predict_chunk(chunk, BATCH)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in kernels):
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    by_name = Counter()
+    for e in kernels:
+        by_name[e.name[:80]] += e.time_range.elapsed_us()
+    busy_ms = busy_us / PROFILE_STEPS / 1e3
+    emit({"phase": phase, "batch": BATCH, "chunk_step_ms": step_ms,
+          "segments_per_s": BATCH / step_ms * 1e3,
+          "device_busy_ms_per_step": busy_ms,
+          "device_idle_share": (1 - busy_ms / step_ms) if busy_ms else None,
+          "kernels_per_step": len(kernels) / PROFILE_STEPS,
+          "top_kernels_ms_per_step": [
+              [name, us / PROFILE_STEPS / 1e3]
+              for name, us in by_name.most_common(8)]})
+
+
+def kernel_entry(name, source, replaces, launches, case):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": case["max_abs_err"], "ms": case["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"],
+            "library_ms": case.get("library_ms")}
+
+
+def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to test", file=sys.stderr)
         return 1
-    from birda_tpu_torch.api import analyze
-    from birda_tpu_torch.inference.classifier import BirdClassifier
-    from birda_tpu_torch.models.contracts import ModelFamily, contract_for
-    from birda_tpu_torch.models.zoo import onnx_model, synthetic_labels
+    from birda_tpu_torch.models.contracts import ModelFamily
+    from birda_tpu_torch.native import audio as native_audio
     from birda_tpu_torch.onnx import fullscale
     from birda_tpu_torch.onnx.lowering import lower
-    from birda_tpu_torch.ops import _build, stft_conv
+    from birda_tpu_torch.ops import _build
 
     dev = torch.device("cuda", 0)
 
-    # -- 1. card ---------------------------------------------------------
+    # -- 1. card and kernel builds ----------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -181,30 +446,23 @@ def main() -> int:
     emit({"phase": "card", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "kernel_build_s": time.perf_counter() - t0})
+          "kernels": list(_build.SOURCES),
+          "kernel_build_s": time.perf_counter() - t0,
+          "native_decoder_loaded": native_audio.available()})
 
     with tempfile.TemporaryDirectory(prefix="birda-smoke-") as tmp:
         tmp = Path(tmp)
         os.environ["XDG_CACHE_HOME"] = str(tmp / "cache")
         os.environ["XDG_CONFIG_HOME"] = str(tmp / "config")
-        t0 = time.perf_counter()
-        graph = fullscale.cached_build(fullscale.BIRDNET_V24_SPEC, seed=SEED)
-        onnx_path = tmp / "birdnet-v24-fullscale.onnx"
-        onnx_path.write_bytes(graph.model_bytes)
-        labels = synthetic_labels(graph.spec.num_classes)
-        labels_path = tmp / "labels.txt"
-        labels_path.write_text("\n".join(labels) + "\n")
-        wavs = []
+
+        # -- 2. BirdNET v2.4: fused_logmel ---------------------------------
+        graph, onnx24, labels24_path, labels24 = write_graph(
+            fullscale.BIRDNET_V24_SPEC, tmp)
+        wavs24 = []
         for i, rate in enumerate((48_000, 44_100)):
             p = tmp / f"field_{rate}.wav"
             write_wav(p, recording(rate, 120.0, SEED + i), rate)
-            wavs.append(p)
-        emit({"phase": "fixtures", "graph": graph.spec.name,
-              "params": graph.param_count, "macs_per_segment": graph.macs,
-              "wavs": [p.name for p in wavs],
-              "seconds": time.perf_counter() - t0})
-
-        # -- 2. kernels against their plain versions ----------------------
+            wavs24.append(p)
         fn = lower(graph.model_bytes, compute_dtype=torch.bfloat16)
         node = next(n for n in fn.graph.nodes
                     if n.op_type == "BirdaFusedMelFrontend")
@@ -212,82 +470,42 @@ def main() -> int:
             dev, torch.bfloat16)
         fb24 = torch.tensor(fn.params[node.inputs[2]]).to(
             dev, torch.bfloat16)
-        kernels = kernel_phase(w24, fb24, node.attr("hop"),
-                               node.attr("eps"), dev)
-        del fn
+        logmel = logmel_kernel_phase(w24, fb24, node.attr("hop"),
+                                     node.attr("eps"), dev)
+        del fn, graph, w24, fb24
+        launches24 = main_path("main_path", "fused_logmel", wavs24, onnx24,
+                               labels24_path, "birdnet-v24")
+        bf16_vs_fp32("bf16_vs_fp32", ModelFamily.BIRDNET_V24, onnx24,
+                     labels24, wavs24[0], relative=False, step_phase="step")
 
-        # -- 3. the main path ----------------------------------------------
-        stft_conv.LAUNCHES.clear()
-        t0 = time.perf_counter()
-        result = analyze(wavs, model_path=onnx_path, labels_path=labels_path,
-                         model_type="birdnet-v24", device="gpu",
-                         precision="bf16", batch_size=BATCH)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(stft_conv.LAUNCHES)
-        summary = result.summary or {}
-        rec = {"phase": "main_path", "backend": result.backend,
-               "exit_code": result.exit_code, "launches": launches,
-               "files": [{"file": f.path.name, "detections":
-                          len(f.detections), "error": f.error}
-                         for f in result.files],
-               "segments": summary.get("total_segments"),
-               "pipeline_ms": summary.get("duration_ms"),
-               "wall_s_with_load": wall}
-        if summary.get("duration_ms"):
-            rec["segments_per_s"] = (summary["total_segments"]
-                                     / (summary["duration_ms"] / 1000))
-            rec["realtime_factor"] = summary["realtime_factor"]
-        emit(rec)
-        check(result.exit_code == 0, "analyze exit code")
-        check((result.backend or {}).get("actual") == "cuda",
-              f"backend {result.backend}")
-        check(launches.get("fused_logmel", 0) > 0,
-              "the main path never launched fused_logmel")
-        check(len(result.files) == 2 and all(
-            f.ok and f.detections for f in result.files),
-              "detections for both files")
-        check(all(0.0 <= d.confidence <= 1.0 and np.isfinite(d.confidence)
-                  for d in result.detections), "confidences in [0, 1]")
+        # -- 3. Perch v2: conv1d_stft --------------------------------------
+        conv = conv1d_kernel_phase(dev)
+        graph, onnx_perch, labels_perch_path, labels_perch = write_graph(
+            fullscale.PERCH_V2_SPEC, tmp)
+        del graph
+        wavs_perch = []
+        for i, rate in enumerate((32_000, 48_000)):
+            p = tmp / f"perch_field_{rate}.wav"
+            write_wav(p, recording(rate, 160.0, SEED + 10 + i), rate)
+            wavs_perch.append(p)
+        launches_perch = main_path(
+            "main_path_perch", "conv1d_stft", wavs_perch, onnx_perch,
+            labels_perch_path, "perch-v2",
+            min_confidence=PERCH_MIN_CONFIDENCE, top_k=PERCH_TOP_K)
+        bf16_vs_fp32("bf16_vs_fp32_perch", ModelFamily.PERCH_V2, onnx_perch,
+                     labels_perch, wavs_perch[0], relative=True,
+                     step_phase="step_perch")
 
-        # -- 4. bf16 (kernel) against fp32 (plain route, TF32 off) ---------
-        contract = contract_for(ModelFamily.BIRDNET_V24)
-        n = contract.num_classes
-        seg = contract.sample_count
-        with wave.open(str(wavs[0])) as w:
-            pcm = np.frombuffer(w.readframes(w.getnframes()), "<i2")
-        chunk = pcm[:(BATCH - 1) * seg + seg].astype(np.float32) / 32767.0
-        scores = {}
-        for precision, dtype in (("bf16", torch.bfloat16), ("fp32", None)):
-            model = onnx_model(onnx_path, contract, labels, dtype=dtype)
-            clf = BirdClassifier(model, device="cuda", min_confidence=0.0,
-                                 top_k=n)
-            rows = clf.chunk_runner(BATCH, seg).predict_chunk(chunk, BATCH)
-            full = np.zeros((BATCH, n), np.float64)
-            for r, res in enumerate(rows):
-                for p in res.predictions:
-                    full[r, p.index] = p.confidence
-            scores[precision] = full
-            del clf, model
-        drift = float(np.abs(scores["bf16"] - scores["fp32"]).max())
-        same_top1 = float(np.mean(scores["bf16"].argmax(1)
-                                  == scores["fp32"].argmax(1)))
-        emit({"phase": "bf16_vs_fp32", "rows": BATCH, "classes": n,
-              "max_score_drift": drift, "bound": SCORE_DRIFT_BOUND,
-              "top1_agreement": same_top1})
-        check(np.isfinite(drift) and drift <= SCORE_DRIFT_BOUND,
-              f"bf16 score drift {drift}")
-
-    main_case = kernels["v24_b32"]
-    emit({"kernels": [{
-        "name": "fused_logmel", "route": "cuda",
-        "source": "birda_tpu_torch/csrc/fused_logmel.cu",
-        "replaces": "birda_tpu/ops/stft_conv.py:241",
-        "launches": launches.get("fused_logmel", 0),
-        "max_abs_err": main_case["max_abs_err"],
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-    }]})
     print(smi, flush=True)
+    emit({"kernels": [
+        kernel_entry("fused_logmel", "birda_tpu_torch/csrc/fused_logmel.cu",
+                     "birda_tpu/ops/stft_conv.py:241",
+                     launches24.get("fused_logmel", 0), logmel["v24_b32"]),
+        kernel_entry("conv1d_stft", "birda_tpu_torch/csrc/conv1d_stft.cu",
+                     "birda_tpu/ops/stft_conv.py:121",
+                     launches_perch.get("conv1d_stft", 0),
+                     conv["perch_b32"]),
+    ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -10,11 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from birda_tpu.errors import Inference as InferenceErr
 from birda_tpu.inference.classifier import BirdClassifier as JaxClassifier
 from birda_tpu.models import zoo as jax_zoo
 from birda_tpu.onnx import fullscale as fs
 
+from birda_tpu_torch.errors import Inference as InferenceErr
 from birda_tpu_torch.inference.classifier import BirdClassifier
 from birda_tpu_torch.models import zoo
 from birda_tpu_torch.models.contracts import ModelFamily, contract_for
@@ -99,19 +99,22 @@ def test_device_out_of_memory_is_a_typed_error(pair, monkeypatch):
 
 
 def test_explicit_cuda_request_fails_loudly_without_a_card(monkeypatch):
-    from birda_tpu.errors import RuntimeInitialization
-
+    """``cuda``/``gpu`` and the default ``auto`` all mean the card: without
+    one they raise and name the CPU request; only ``cpu`` runs there."""
+    from birda_tpu_torch.errors import RuntimeInitialization
     from birda_tpu_torch.inference.backend import select_backend
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for request in ("cuda", "gpu"):
         with pytest.raises(RuntimeInitialization, match="CUDA was requested"):
             select_backend(request)
-    _, status = select_backend("auto")
-    assert status.to_json_dict() == {
-        "requested": "auto", "actual": "cpu",
-        "fallback_reason": "no CUDA devices detected"}
-    assert select_backend("cpu")[1].actual == "cpu"
+    for request in ("auto", None):
+        with pytest.raises(RuntimeInitialization,
+                           match=r"default device is the CUDA card.*"
+                                 r"device=\"cpu\" \(--cpu\)"):
+            select_backend(request)
+    assert select_backend("cpu")[1].to_json_dict() == {
+        "requested": "cpu", "actual": "cpu"}
     with pytest.raises(RuntimeInitialization, match="unknown device"):
         select_backend("tpu")
 
@@ -119,8 +122,11 @@ def test_explicit_cuda_request_fails_loudly_without_a_card(monkeypatch):
 def test_quantize_without_native_library_matches_jax(pair, monkeypatch):
     """Where the native audio library does not load, the int16 payload and
     scale equal the JAX runner's numpy fallback bit for bit."""
-    from birda_tpu.native import audio as native_audio
+    from birda_tpu.native import audio as jax_native_audio
 
+    from birda_tpu_torch.native import audio as native_audio
+
+    monkeypatch.setattr(jax_native_audio, "available", lambda: False)
     monkeypatch.setattr(native_audio, "available", lambda: False)
     jax_clf, port_clf = pair
     seg = port_clf.sample_count

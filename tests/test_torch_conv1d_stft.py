@@ -1,0 +1,160 @@
+"""Conv1d-STFT of the PyTorch port (birda_tpu_torch/ops/stft_conv.py::
+conv1d_stft) against the JAX package's Pallas kernel
+(birda_tpu/ops/stft_conv.py::conv1d_stft).
+
+On the CPU the port's wrapper takes its plain PyTorch version; the JAX
+kernel runs in interpret mode. Both use the same bf16 operands and fp32
+sums, so they differ only in the order of the fp32 additions: the bound is
+the JAX package's own, max error over max |want| < 2e-2
+(tests/test_stft_kernel.py). With Perch v2's identity framing weight every
+output is one bf16 sample times 1, so both must give the bf16 frames
+exactly. The CUDA kernel itself is held against the plain version on a
+card only.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from birda_tpu_torch.ops import stft_conv
+
+REL_BOUND = 2e-2
+
+# (B, S, K, hop, C): the JAX kernel tests' v2.4 / v3.0 / Perch geometries
+# (S and C shrunk; the tiling depends on K and hop), and T below one tile.
+GEOMETRIES = [
+    pytest.param(3, 20_000, 2048, 278, 66, id="v24-shape"),
+    pytest.param(3, 20_000, 1024, 320, 34, id="v30-shape"),
+    pytest.param(3, 20_000, 640, 320, 640, id="perch-frame-shape"),
+    pytest.param(2, 6_000, 2048, 278, 40, id="short-t"),
+]
+
+
+def _case(b, s, k, c, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, (b, s)).astype(np.float32)
+    w = rng.normal(0, 0.02, (c, k)).astype(np.float32)
+    return x, w
+
+
+def _bf16(a: np.ndarray) -> np.ndarray:
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+@pytest.mark.parametrize("b,s,k,hop,c", GEOMETRIES)
+def test_plain_version_matches_jax_kernel(b, s, k, hop, c):
+    from birda_tpu.ops.stft_conv import conv1d_stft as jax_conv1d_stft
+
+    x, w = _case(b, s, k, c)
+    want = np.asarray(jax_conv1d_stft(x, w, hop=hop, interpret=True),
+                      np.float32)
+    got = stft_conv.conv1d_stft(torch.from_numpy(x), torch.from_numpy(w), hop)
+    assert got.dtype == torch.bfloat16
+    assert tuple(got.shape) == want.shape == (b, c, (s - k) // hop + 1)
+    err = np.abs(got.float().numpy() - want).max()
+    assert err / np.abs(want).max() < REL_BOUND
+
+
+def test_identity_weight_gives_the_bf16_frames_exactly():
+    """Perch v2's framer: both packages return the bf16 frames, bit for
+    bit."""
+    from birda_tpu.ops.stft_conv import conv1d_stft as jax_conv1d_stft
+
+    k, hop = 640, 320
+    x, _ = _case(2, 20_000, k, 1)
+    eye = np.eye(k, dtype=np.float32)
+    t = (x.shape[1] - k) // hop + 1
+    frames = np.stack([_bf16(x)[:, i * hop:i * hop + k] for i in range(t)],
+                      axis=2)  # [B, K, T]
+    got = stft_conv.conv1d_stft(torch.from_numpy(x), torch.from_numpy(eye),
+                                hop)
+    want = np.asarray(jax_conv1d_stft(x, eye, hop=hop, interpret=True),
+                      np.float32)
+    assert np.array_equal(want, frames)
+    assert np.array_equal(got.float().numpy(), frames)
+
+
+def test_cpu_tensor_takes_plain_version_without_launch():
+    x, w = _case(2, 8_000, 512, 16)
+    x, w = torch.from_numpy(x), torch.from_numpy(w)
+    before = stft_conv.LAUNCHES["conv1d_stft"]
+    got = stft_conv.conv1d_stft(x, w, 160)
+    assert torch.equal(got, stft_conv.conv1d_stft_reference(x, w, 160))
+    assert stft_conv.LAUNCHES["conv1d_stft"] == before
+
+
+def test_other_devices_raise():
+    x = torch.empty((1, 4096), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        stft_conv.conv1d_stft(x, torch.empty((8, 512)), 160)
+
+
+TILES = (128, 128, 32)  # csrc/conv1d_stft.cu: TILE_T, TILE_C, TILE_K
+
+
+@pytest.mark.parametrize("b,s,k,hop,c", GEOMETRIES)
+def test_kernel_layout_reproduces_plain_version(monkeypatch, b, s, k, hop,
+                                                c):
+    """The padded, tiled weight layout the CUDA kernel reads, walked in the
+    kernel's order (channel tiles, K chunks, frames staged with window
+    positions past K zeroed) in float64, gives the plain version: the
+    padding and tiling lose nothing."""
+    monkeypatch.setattr(stft_conv, "_conv_tiles", lambda: TILES)
+    tile_t, tile_c, tile_k = TILES
+    x, w = _case(b, s, k, c)
+    wt = torch.from_numpy(w).to(torch.bfloat16)
+    layout = stft_conv.prepare_conv1d_weights(wt)
+    n_ct, n_kc = layout.w.shape[:2]
+    assert layout.w.shape == (n_ct, n_kc, tile_k, tile_c)
+    assert (n_ct * tile_c >= c > (n_ct - 1) * tile_c
+            and n_kc * tile_k >= k > (n_kc - 1) * tile_k)
+
+    t = (s - k) // hop + 1
+    n_frames = -(-t // tile_t) * tile_t
+    sig = np.zeros((b, max(s, (n_frames - 1) * hop + n_kc * tile_k)))
+    sig[:, :s] = _bf16(x)
+    frames = np.stack([sig[:, i * hop:i * hop + n_kc * tile_k]
+                       for i in range(n_frames)], axis=1)  # [B, Tp, Kp]
+    frames[..., k:] = 0.0  # staged as zeros past K
+    wp = layout.w.double().numpy()
+    out = np.concatenate([
+        sum(frames[..., j * tile_k:(j + 1) * tile_k] @ wp[ct, j]
+            for j in range(n_kc))
+        for ct in range(n_ct)], axis=-1)  # [B, Tp, Cp]
+    got = out[:, :t, :c].transpose(0, 2, 1)
+    want = stft_conv.conv1d_stft_reference(
+        torch.from_numpy(x), wt, hop).float().numpy()
+    assert np.abs(got - want).max() / np.abs(want).max() < REL_BOUND
+
+
+def test_layout_refuses_a_weight_that_is_not_two_dimensional(monkeypatch):
+    monkeypatch.setattr(stft_conv, "_conv_tiles", lambda: TILES)
+    with pytest.raises(ValueError, match=r"\[C, K\]"):
+        stft_conv.prepare_conv1d_weights(torch.zeros(8, 1, 512))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("b,s,k,hop,c", [
+    pytest.param(32, 160_000, 640, 320, 640, id="perch"),
+    pytest.param(4, 144_000, 2048, 278, 2050, id="v24"),
+    pytest.param(2, 6_000, 2048, 278, 40, id="short-t"),
+])
+def test_card_kernel_matches_plain_version(b, s, k, hop, c):
+    """On a CUDA card: the hand-written kernel against its plain version
+    (run on the card with ``BIRDA_TEST_TPU=1 python -m pytest
+    tests/test_torch_conv1d_stft.py -k card``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU form")
+    dev = torch.device("cuda", 0)
+    x, w = (torch.from_numpy(a).to(dev) for a in _case(b, s, k, c))
+    before = stft_conv.LAUNCHES["conv1d_stft"]
+    got = stft_conv.conv1d_stft(x, w, hop)
+    torch.cuda.synchronize()
+    assert stft_conv.LAUNCHES["conv1d_stft"] == before + 1
+    want = stft_conv.conv1d_stft_reference(x, w, hop)
+    assert got.shape == want.shape
+    err = (got.float() - want.float()).abs().max()
+    assert float(err / want.float().abs().max()) < REL_BOUND
+    eye = torch.eye(k, device=dev)
+    assert torch.equal(stft_conv.conv1d_stft(x, eye, hop),
+                       stft_conv.conv1d_stft_reference(x, eye, hop))

@@ -122,21 +122,115 @@ def test_cli_csv_matches_jax_cli(setup, home):
                     assert a == b
 
 
-def test_runs_without_jax_flax_pyarrow_or_click(setup, home):
+# Tiny Perch v2: softmax scores below 1e-3 with random weights, so the runs
+# keep the top 5 of each segment above a floor of 1e-6, and confidences are
+# held within 1e-4 of the file's largest score (fp32 rounding).
+PERCH_FLOOR = 1e-6
+PERCH_TOP_K = 5
+
+
+@pytest.fixture()
+def perch_setup(setup, home):
     wavs, kw = setup
+    g = fs.cached_build(fs.tiny_spec(fs.PERCH_V2_SPEC), seed=1)
+    model = home / "perch-v2-tiny.onnx"
+    model.write_bytes(g.model_bytes)
+    labels = home / "perch-labels.txt"
+    labels.write_text("\n".join(synthetic_labels(g.spec.num_classes)) + "\n")
+    return wavs, dict(model_path=model, labels_path=labels,
+                      model_type="perch-v2", min_confidence=PERCH_FLOOR,
+                      top_k=PERCH_TOP_K, device="cpu")
+
+
+def _by_window(rows):
+    """(start, end, name) -> confidence, and the largest confidence."""
+    table = {(r[0], r[1], r[2]): r[-1] for r in rows}
+    return table, max(table.values())
+
+
+def test_perch_analyze_matches_jax(perch_setup):
+    import birda_tpu.api as jax_api
+
+    import birda_tpu_torch.api as torch_api
+
+    wavs, kw = perch_setup
+    want = _rows(jax_api.analyze(wavs, **kw))
+    result = torch_api.analyze(wavs, **kw)
+    got = _rows(result)
+    assert result.exit_code == 0
+    assert result.summary["total_segments"] == 4  # 9 s in 5 s windows
+    assert got.keys() == want.keys()
+    for name in want:
+        (g, _), (w, top) = _by_window(got[name]), _by_window(want[name])
+        assert len(w) == 2 * PERCH_TOP_K
+        assert g.keys() == w.keys()
+        assert max(abs(g[k] - w[k]) for k in w) <= 1e-4 * top
+
+
+def test_perch_cli_csv_matches_jax_cli(perch_setup, home):
+    from click.testing import CliRunner
+
+    from birda_tpu.cli.main import cli
+
+    from birda_tpu_torch.cli.main import main
+
+    wavs, kw = perch_setup
+    args = ["--model-path", str(kw["model_path"]),
+            "--labels-path", str(kw["labels_path"]),
+            "--model-type", "perch-v2", "-c", str(PERCH_FLOOR), "--cpu",
+            "-f", "csv", "-q"]
+    for name, run in (
+        ("jax", lambda a: CliRunner().invoke(cli, a).exit_code),
+        ("torch", main),
+    ):
+        out = home / f"perch-{name}"
+        assert run(["analyze", *map(str, wavs), *args, "-o", str(out)]) == 0
+    for wav in wavs:
+        tables = []
+        for name in ("jax", "torch"):
+            (path,) = (home / f"perch-{name}").glob(f"{wav.stem}*.csv")
+            with open(path, encoding="utf-8-sig") as f:
+                tables.append(list(csv.reader(f)))
+        want, got = tables
+        assert got[0] == want[0]  # header
+        assert len(got) == len(want) > 1
+
+        def rows(table):
+            return _by_window([(r[0], r[1], r[2], float(r[4]))
+                               for r in table[1:]])
+
+        (g, _), (w, top) = rows(got), rows(want)
+        assert g.keys() == w.keys()
+        assert max(abs(g[k] - w[k]) for k in w) <= 1e-4 * top
+
+
+def test_runs_without_jax_flax_pyarrow_or_click(setup, home):
+    """The port runs where neither jax, flax, pyarrow, click nor the JAX
+    package itself can be imported: tiny v2.4 and tiny Perch v2 (scores
+    below 1e-3 with random weights, so a floor of 1e-6 and the top 5), in
+    fp32 and bf16."""
+    wavs, kw = setup
+    perch = fs.build(fs.tiny_spec(fs.PERCH_V2_SPEC), seed=1)
+    perch_model = home / "perch-v2-tiny.onnx"
+    perch_model.write_bytes(perch.model_bytes)
+    perch_labels = home / "perch-labels.txt"
+    perch_labels.write_text(
+        "\n".join(synthetic_labels(perch.spec.num_classes)) + "\n")
+    blocked = ("jax", "jaxlib", "flax", "pyarrow", "click", "birda_tpu")
     code = f"""
 import json, sys
-for name in ("jax", "jaxlib", "flax", "pyarrow", "click"):
+for name in {blocked!r}:
     sys.modules[name] = None
 from birda_tpu_torch.api import analyze
-runs = [analyze({[str(w) for w in wavs]!r},
-                model_path={str(kw['model_path'])!r},
-                labels_path={str(kw['labels_path'])!r},
-                model_type="birdnet-v24", min_confidence=0.1, device="cpu",
-                precision=p) for p in ("fp32", "bf16")]
+models = [({str(kw['model_path'])!r}, {str(kw['labels_path'])!r},
+           "birdnet-v24", 0.1, 10),
+          ({str(perch_model)!r}, {str(perch_labels)!r}, "perch-v2", 1e-6, 5)]
+runs = [analyze({[str(w) for w in wavs]!r}, model_path=m, labels_path=l,
+                model_type=t, min_confidence=c, top_k=k, device="cpu",
+                precision=p)
+        for m, l, t, c, k in models for p in ("fp32", "bf16")]
 loaded = sorted(m for m, v in sys.modules.items() if v is not None
-                and m.split(".")[0] in ("jax", "jaxlib", "flax", "pyarrow",
-                                        "click"))
+                and m.split(".")[0] in {blocked!r})
 print(json.dumps({{"exit": [r.exit_code for r in runs], "loaded": loaded,
                   "detections": [len(f.detections) for r in runs
                                  for f in r.files]}}))
@@ -145,9 +239,9 @@ print(json.dumps({{"exit": [r.exit_code for r in runs], "loaded": loaded,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     out = json.loads(r.stdout.strip().splitlines()[-1])
-    assert out["exit"] == [0, 0]
+    assert out["exit"] == [0, 0, 0, 0]
     assert out["loaded"] == []
-    assert len(out["detections"]) == 4 and all(out["detections"])
+    assert len(out["detections"]) == 8 and all(out["detections"])
 
 
 def test_chip_smoke_refuses_without_card_or_checkout(tmp_path):
@@ -169,9 +263,8 @@ def test_chip_smoke_refuses_without_card_or_checkout(tmp_path):
                  "geomodel range filter", id="range-filter"),
 ])
 def test_unported_options_are_refused(setup, kwargs, what):
-    from birda_tpu.errors import ClassifierBuild
-
     import birda_tpu_torch.api as torch_api
+    from birda_tpu_torch.errors import ClassifierBuild
 
     wavs, kw = setup
     with pytest.raises(ClassifierBuild, match="not yet ported") as e:
