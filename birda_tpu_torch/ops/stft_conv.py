@@ -15,7 +15,10 @@ plain PyTorch version for a CPU tensor:
   fp32 accumulation and bf16 out — through ``csrc/conv1d_stft.cu``; plain
   version :func:`conv1d_stft_reference`.
 
-The kernels take their constants in a padded, tiled layout
+Both kernels run the strided-window GEMM mainloop of
+``csrc/strided_window_gemm.cuh`` and read the signal as it comes (float32 or
+bf16, no padded copy). They take their constants as padded chunks, each one
+128-B swizzled image that the wgmma descriptor reads as it lies
 (:func:`prepare_logmel_weights`, :func:`prepare_conv1d_weights`): the
 graph's weights are fixed, so the lowering prepares each layout once per
 weight, not per call.
@@ -39,11 +42,20 @@ MAX_MELS = 256
 
 #: ctypes signatures of each kernel library's launch function.
 _SIGNATURES = {
-    "fused_logmel": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                     + [ctypes.c_float, ctypes.c_void_p]),
-    "conv1d_stft": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-                    + [ctypes.c_void_p]),
+    "fused_logmel": ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+                     + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]),
+    "conv1d_stft": ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
+                    + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
 }
+
+#: csrc/strided_window_gemm.cuh: ring stages of one 16 KB weight chunk
+#: each, and the shared memory a block may use on sm_90.
+RING_STAGES = 4
+STAGE_BYTES = 16 * 1024
+SMEM_LIMIT = 232_448
+#: conv1d_stft.cu's transposed output staging: two warpgroups x 128
+#: channels x 72 bf16.
+CONV_STAGING_BYTES = 2 * 128 * 72 * 2
 
 
 def _lib(name: str):
@@ -80,15 +92,70 @@ def _conv_tiles() -> tuple[int, int, int]:
             lib.birda_conv1d_stft_tile_k())
 
 
+def swizzle128(t: torch.Tensor) -> torch.Tensor:
+    """The 128-B swizzle of rows of 64 bf16 (128 B) that a K-major wgmma
+    descriptor of mode 1 reads: in row ``r``, the 16-B unit ``u`` holds the
+    row's logical unit ``u ^ (r % 8)``. ``t``: ``[..., rows, 64]``, rows a
+    multiple of 8, each image starting on a 1024-B boundary. Its own
+    inverse."""
+    rows = t.shape[-2]
+    r = torch.arange(rows, device=t.device)[:, None]
+    u = torch.arange(8, device=t.device)[None, :]
+    v = t.reshape(*t.shape[:-1], 8, 8)
+    return v[..., r, u ^ (r % 8), :].reshape(t.shape)
+
+
+def span_pad(hop: int) -> int:
+    """Samples of padding after each ``hop``-sample row of the signal span
+    in shared memory, so that the eight frames one warp reads at one window
+    position fall on distinct banks: the row stride ``(hop + pad) / 2``
+    words is 4 mod 8. 0 for an odd hop (2-byte loads) or a hop below 16."""
+    if hop % 2 or hop < 16:
+        return 0
+    return 2 * ((4 - hop // 2) % 8)
+
+
+def span_smem_bytes(hop: int, k_pad: int, extra: int = 0) -> int:
+    """Dynamic shared memory of one block (strided_window_gemm.cuh::
+    smem_bytes): alignment slack, the weight ring, its barriers, the padded
+    span of 128 frames and ``extra`` epilogue bytes."""
+    rows = 128 - 1 + -(-k_pad // hop)
+    span = -(-rows * (hop + span_pad(hop)) * 2 // 16) * 16
+    return 1024 + RING_STAGES * STAGE_BYTES + 2 * RING_STAGES * 8 + span \
+        + extra
+
+
+def _check_span(name: str, hop: int, k_pad: int, extra: int) -> None:
+    need = span_smem_bytes(hop, k_pad, extra)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"{name}: the signal span of 128 frames at hop {hop} and a "
+            f"{k_pad}-sample window needs {need} bytes of shared memory, "
+            f"more than the {SMEM_LIMIT} a block may use")
+
+
+def _signal(name: str, x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the kernel reads it: ``[B, S]``, contiguous, float32 or
+    bf16 (no padded copy: the kernel masks the tail itself)."""
+    if x.ndim != 2:
+        raise ValueError(f"{name}: signal must be [B, S], got "
+                         f"{tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.float()
+    return x.contiguous()
+
+
 @dataclass(frozen=True)
 class LogmelWeights:
     """The kernel's layout of one front-end's DFT weight and filterbank.
 
-    ``w``: ``[n_bin_tiles, n_k_chunks, tile_k, 2 * tile_bins]`` bf16 — for
-    each bin tile and K chunk, the chunk of the cos rows then the -sin rows,
-    transposed to ``[k, bin]``, zero-padded past ``bins`` and ``k``.
-    ``fb``: ``[n_bin_tiles * tile_bins, mp]`` bf16, zero-padded to whole bin
-    tiles and to ``mp``, the mel width rounded up to a multiple of 32.
+    ``w``: ``[n_bin_tiles, n_k_chunks, 2 * tile_bins, tile_k]`` bf16 — for
+    each bin tile and K chunk, the chunk's cos rows then its -sin rows,
+    ``[bin, k]``, zero-padded past ``bins`` and ``k``, each chunk one
+    :func:`swizzle128` image. ``fb``: ``[n_bin_tiles, mp, tile_bins]`` bf16
+    — for each bin tile, the filterbank transposed to ``[mel, bin]``,
+    zero-padded to whole bin tiles and to ``mp``, the mel width rounded up
+    to a multiple of 32, swizzled the same way.
     """
 
     w: torch.Tensor
@@ -116,12 +183,15 @@ def prepare_logmel_weights(w: torch.Tensor, fb: torch.Tensor
                         device=dev)
     banks[0, :bins, :k] = w[:bins]
     banks[1, :bins, :k] = w[bins:]
-    # [2, nbt, tb, nkc, tk] -> [nbt, nkc, tk, 2, tb]: cos then sin per row.
-    wp = (banks.view(2, nbt, tb, nkc, tk).permute(1, 3, 4, 0, 2)
-          .reshape(nbt, nkc, tk, 2 * tb).contiguous())
+    # [2, nbt, tb, nkc, tk] -> [nbt, nkc, 2, tb, tk]: cos then sin rows.
+    wp = (banks.view(2, nbt, tb, nkc, tk).permute(1, 3, 0, 2, 4)
+          .reshape(nbt, nkc, 2 * tb, tk))
     fbp = torch.zeros((nbt * tb, mp), dtype=torch.bfloat16, device=dev)
     fbp[:bins, :m] = fb
-    return LogmelWeights(w=wp, fb=fbp, bins=bins, k=k, m=m)
+    fbp = fbp.view(nbt, tb, mp).transpose(1, 2)  # [nbt, mp, tb]
+    return LogmelWeights(w=swizzle128(wp).contiguous(),
+                         fb=swizzle128(fbp).contiguous(),
+                         bins=bins, k=k, m=m)
 
 
 def fused_logmel_reference(x: torch.Tensor, w: torch.Tensor,
@@ -158,9 +228,7 @@ def fused_logmel(x: torch.Tensor, w: torch.Tensor, fb: torch.Tensor,
         return fused_logmel_reference(x, w, fb, hop, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_logmel: unsupported device {x.device}")
-    if x.ndim != 2:
-        raise ValueError(f"fused_logmel: signal must be [B, S], got "
-                         f"{tuple(x.shape)}")
+    x = _signal("fused_logmel", x)
     if prepared is None:
         prepared = prepare_logmel_weights(w, fb)
     for name, t in (("w", prepared.w), ("fb", prepared.fb)):
@@ -172,19 +240,17 @@ def fused_logmel(x: torch.Tensor, w: torch.Tensor, fb: torch.Tensor,
     if s < k:
         raise ValueError(f"fused_logmel: signal of {s} samples is shorter "
                          f"than the {k}-sample window")
-    tt, _, tk = _tiles()
-    t = (s - k) // hop + 1
+    _, _, tk = _tiles()
     n_bin_tiles, n_kc = prepared.w.shape[0], prepared.w.shape[1]
-    # Every frame of the last frame tile reads inside the padded signal.
-    stride = max(s, (-(-t // tt) * tt - 1) * hop + n_kc * tk)
+    _check_span("fused_logmel", hop, n_kc * tk, 0)
+    t = (s - k) // hop + 1
     with torch.cuda.device(x.device):
-        xp = torch.zeros((b, stride), dtype=torch.bfloat16, device=x.device)
-        xp[:, :s] = x
         out = torch.empty((b, t, m), dtype=torch.bfloat16, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _lib("fused_logmel").birda_fused_logmel(
-            xp.data_ptr(), prepared.w.data_ptr(), prepared.fb.data_ptr(),
-            out.data_ptr(), b, stride, hop, t, m, prepared.fb.shape[1],
+            x.data_ptr(), int(x.dtype == torch.float32),
+            prepared.w.data_ptr(), prepared.fb.data_ptr(), out.data_ptr(),
+            b, s, hop, span_pad(hop), k, t, m, prepared.fb.shape[1],
             n_bin_tiles, n_kc, float(eps), stream)
     if rc != 0:
         raise RuntimeError(f"fused_logmel kernel launch failed: CUDA error "
@@ -201,9 +267,9 @@ def fused_logmel(x: torch.Tensor, w: torch.Tensor, fb: torch.Tensor,
 class Conv1dWeights:
     """The Conv1d-STFT kernel's layout of one conv weight ``[C, K]``.
 
-    ``w``: ``[n_c_tiles, n_k_chunks, tile_k, tile_c]`` bf16 — for each
-    channel tile and K chunk, the chunk transposed to ``[k, c]``,
-    zero-padded past ``c`` and ``k``.
+    ``w``: ``[n_c_tiles, n_k_chunks, tile_c, tile_k]`` bf16 — for each
+    channel tile and K chunk, the chunk ``[c, k]``, zero-padded past ``c``
+    and ``k``, one :func:`swizzle128` image.
     """
 
     w: torch.Tensor
@@ -221,9 +287,9 @@ def prepare_conv1d_weights(w: torch.Tensor) -> Conv1dWeights:
     padded = torch.zeros((nct * tc, nkc * tk), dtype=torch.bfloat16,
                          device=w.device)
     padded[:c, :k] = w
-    # [nct, tc, nkc, tk] -> [nct, nkc, tk, tc]
-    wp = padded.view(nct, tc, nkc, tk).permute(0, 2, 3, 1).contiguous()
-    return Conv1dWeights(w=wp, c=c, k=k)
+    # [nct, tc, nkc, tk] -> [nct, nkc, tc, tk]
+    wp = padded.view(nct, tc, nkc, tk).permute(0, 2, 1, 3)
+    return Conv1dWeights(w=swizzle128(wp).contiguous(), c=c, k=k)
 
 
 def conv1d_stft_reference(x: torch.Tensor, w: torch.Tensor, hop: int
@@ -254,9 +320,7 @@ def conv1d_stft(x: torch.Tensor, w: torch.Tensor, hop: int,
         return conv1d_stft_reference(x, w, hop)
     if x.device.type != "cuda":
         raise ValueError(f"conv1d_stft: unsupported device {x.device}")
-    if x.ndim != 2:
-        raise ValueError(f"conv1d_stft: signal must be [B, S], got "
-                         f"{tuple(x.shape)}")
+    x = _signal("conv1d_stft", x)
     if prepared is None:
         prepared = prepare_conv1d_weights(w)
     if prepared.w.device != x.device:
@@ -267,21 +331,17 @@ def conv1d_stft(x: torch.Tensor, w: torch.Tensor, hop: int,
     if s < k:
         raise ValueError(f"conv1d_stft: signal of {s} samples is shorter "
                          f"than the {k}-sample window")
-    tt, _, _ = _conv_tiles()
-    t = (s - k) // hop + 1
+    _, _, tk = _conv_tiles()
     n_c_tiles, n_kc = prepared.w.shape[0], prepared.w.shape[1]
-    # Every frame of the last frame tile reads its K samples inside the
-    # padded row; rows start on 16-B boundaries.
-    stride = max(s, (-(-t // tt) * tt - 1) * hop + k)
-    stride = -(-stride // 8) * 8
+    _check_span("conv1d_stft", hop, n_kc * tk, CONV_STAGING_BYTES)
+    t = (s - k) // hop + 1
     with torch.cuda.device(x.device):
-        xp = torch.zeros((b, stride), dtype=torch.bfloat16, device=x.device)
-        xp[:, :s] = x
         out = torch.empty((b, c, t), dtype=torch.bfloat16, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _lib("conv1d_stft").birda_conv1d_stft(
-            xp.data_ptr(), prepared.w.data_ptr(), out.data_ptr(), b, stride,
-            hop, k, t, c, n_c_tiles, n_kc, stream)
+            x.data_ptr(), int(x.dtype == torch.float32),
+            prepared.w.data_ptr(), out.data_ptr(), b, s, hop, span_pad(hop),
+            k, t, c, n_c_tiles, n_kc, stream)
     if rc != 0:
         raise RuntimeError(f"conv1d_stft kernel launch failed: CUDA error "
                            f"{rc}")

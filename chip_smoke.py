@@ -6,9 +6,13 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the hand-written kernels from ``birda_tpu_torch/csrc`` (one
-``nvcc`` each, all at once) and holds each against its plain PyTorch version
-at the main paths' shapes. Then it drives ``birda_tpu_torch.api.analyze`` on
-two full-width graphs with random weights from a seed, in bf16:
+``nvcc`` each, all at once), prints ``ptxas``'s report of each, and holds
+each against its plain PyTorch version at the main paths' shapes and beside
+them (v2.4 at the CUDA default batch 64, an odd hop, a bf16 signal), timing
+``fused_logmel`` beside a bf16 cuBLAS composition of the same front-end and
+``conv1d_stft`` beside ``F.conv1d``. Then it drives
+``birda_tpu_torch.api.analyze`` on two full-width graphs with random weights
+from a seed, in bf16:
 
 - BirdNET v2.4 over two generated 120 s recordings (48 kHz; 44.1 kHz, which
   runs the device resampler), through ``fused_logmel``;
@@ -44,7 +48,9 @@ CONV_REL_BOUND = 2e-2
 SCORE_DRIFT_BOUND = 5e-2
 BATCH = 32
 SEED = 1
-TIMING_ITERS = 20
+#: Timing: calls queued back to back per window, and windows (median).
+TIMING_REPS = 20
+TIMING_ROUNDS = 7
 #: Chunk steps timed on the host clock, and chunk steps profiled.
 STEP_ITERS = 10
 PROFILE_STEPS = 3
@@ -69,21 +75,27 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def timed_ms(fn, iters: int = TIMING_ITERS) -> float:
-    """Median of ``iters`` CUDA-event timings of ``fn`` after a warm-up."""
+def timed_ms(fn) -> float:
+    """Device time per call of ``fn``: after a warm-up, a sleep kernel lets
+    the host queue ``TIMING_REPS`` calls, which then run back to back
+    between two CUDA events, so the host's own time per call is not counted;
+    the median of ``TIMING_ROUNDS`` such windows."""
     import torch
 
     for _ in range(3):
         fn()
+    torch.cuda.synchronize()
     times = []
-    for _ in range(iters):
+    for _ in range(TIMING_ROUNDS):
+        torch.cuda._sleep(50_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(TIMING_REPS):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / TIMING_REPS)
     times.sort()
     return times[len(times) // 2]
 
@@ -138,10 +150,35 @@ def dft_weight(n_fft: int):
         .astype(np.float32)
 
 
+def composed_logmel(x, w, fb, hop, eps):
+    """The log-mel front-end as a bf16 cuBLAS composition (unfold, matmul,
+    power, matmul, log): the yardstick ``fused_logmel`` is timed against.
+    The port never calls it."""
+    import torch
+
+    bins = fb.shape[0]
+    frames = x.to(torch.bfloat16).unfold(-1, w.shape[1], hop)
+    spec = torch.matmul(frames, w.T)
+    re, im = spec[..., :bins].float(), spec[..., bins:].float()
+    power = (re * re + im * im).to(torch.bfloat16)
+    return torch.log(torch.matmul(power, fb).float() + eps).to(torch.bfloat16)
+
+
+def timed_against_plain(rec, kernel, plain, library=None, key="library_ms"):
+    """Adds the kernel's, its plain version's and (where given) a library
+    call's times to ``rec``, and the kernel's share of its bound."""
+    rec["ms"] = timed_ms(kernel)
+    rec["plain_ms"] = timed_ms(plain)
+    if library is not None:
+        rec[key] = timed_ms(library)
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+
+
 def logmel_kernel_phase(w24, fb24, hop24, eps, dev):
     """fused_logmel against fused_logmel_reference at the main path's
-    shapes (v2.4 at batch 16 and 32), the v3.0 geometry, and a T below
-    one frame tile."""
+    shapes (v2.4 at batch 16, 32 and 64, the CUDA default), the v3.0
+    geometry, an odd hop, a bf16 signal and a T below one frame tile; timed
+    beside a bf16 cuBLAS composition of the same front-end."""
     import numpy as np
     import torch
 
@@ -152,16 +189,20 @@ def logmel_kernel_phase(w24, fb24, hop24, eps, dev):
     fb30 = torch.from_numpy(
         rng.uniform(0, 0.05, (513, 128)).astype(np.float32)).to(
             dev, torch.bfloat16)
-    cases = [
-        ("v24_b16", w24, fb24, hop24, 16, 144_000, True),
-        ("v24_b32", w24, fb24, hop24, BATCH, 144_000, True),
-        ("v30_b16", w30, fb30, 320, 16, 160_000, True),
-        ("v24_short_t", w24, fb24, hop24, 2, 6_000, False),
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # name, w, fb, hop, B, S, signal dtype, timed
+        ("v24_b16", w24, fb24, hop24, 16, 144_000, f32, True),
+        ("v24_b32", w24, fb24, hop24, BATCH, 144_000, f32, True),
+        ("v24_b64", w24, fb24, hop24, 64, 144_000, f32, True),
+        ("v30_b16", w30, fb30, 320, 16, 160_000, f32, True),
+        ("v24_odd_hop", w24, fb24, hop24 + 1, 4, 144_000, f32, True),
+        ("v24_bf16_signal", w24, fb24, hop24, 4, 144_000, bf16, False),
+        ("v24_short_t", w24, fb24, hop24, 2, 6_000, f32, False),
     ]
     results = {}
-    for name, w, fb, hop, b, s, timed in cases:
+    for name, w, fb, hop, b, s, dtype, timed in cases:
         x = torch.from_numpy(
-            rng.normal(0, 0.1, (b, s)).astype(np.float32)).to(dev)
+            rng.normal(0, 0.1, (b, s)).astype(np.float32)).to(dev, dtype)
         layout = stft_conv.prepare_logmel_weights(w, fb)
         got = stft_conv.fused_logmel(x, w, fb, hop, eps, prepared=layout)
         torch.cuda.synchronize()
@@ -174,7 +215,8 @@ def logmel_kernel_phase(w24, fb24, hop24, eps, dev):
         err = (got.float() - want.float()).abs().flatten()
         bins, m = fb.shape
         rec = {"phase": "kernel", "kernel": "fused_logmel", "case": name,
-               "shape": list(got.shape),
+               "shape": list(got.shape), "hop": hop,
+               "signal_dtype": str(dtype).removeprefix("torch."),
                "q99_abs_err": float(torch.quantile(err, 0.99)),
                "max_abs_err": float(err.max()),
                "q99_bound": LOGMEL_Q99_BOUND,
@@ -183,10 +225,12 @@ def logmel_kernel_phase(w24, fb24, hop24, eps, dev):
         check(rec["q99_abs_err"] < LOGMEL_Q99_BOUND,
               f"{name}: log-mel q99 error {rec['q99_abs_err']}")
         if timed:
-            rec["ms"] = timed_ms(lambda: stft_conv.fused_logmel(
-                x, w, fb, hop, eps, prepared=layout))
-            rec["plain_ms"] = timed_ms(
-                lambda: stft_conv.fused_logmel_reference(x, w, fb, hop, eps))
+            timed_against_plain(
+                rec,
+                lambda: stft_conv.fused_logmel(x, w, fb, hop, eps,
+                                               prepared=layout),
+                lambda: stft_conv.fused_logmel_reference(x, w, fb, hop, eps),
+                lambda: composed_logmel(x, w, fb, hop, eps), "composed_ms")
         emit(rec)
         results[name] = rec
     return results
@@ -194,9 +238,10 @@ def logmel_kernel_phase(w24, fb24, hop24, eps, dev):
 
 def conv1d_kernel_phase(dev):
     """conv1d_stft against conv1d_stft_reference at Perch v2's framer
-    shape (random and identity weights), the v2.4 unfused geometry, and a
-    T below one frame tile; timed beside ``F.conv1d`` in bf16, the one
-    PyTorch call that computes the same function."""
+    shape (random and identity weights), the v2.4 unfused geometry, an odd
+    hop, a bf16 signal and a T below one frame tile; timed beside
+    ``F.conv1d`` in bf16, the one PyTorch call that computes the same
+    function."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -204,16 +249,21 @@ def conv1d_kernel_phase(dev):
     from birda_tpu_torch.ops import stft_conv
 
     rng = np.random.default_rng(SEED)
-    cases = [  # name, B, S, K, hop, C, weight, timed
-        ("perch_b32", BATCH, 160_000, 640, 320, 640, "random", True),
-        ("perch_identity", BATCH, 160_000, 640, 320, 640, "identity", True),
-        ("v24_geometry", 4, 144_000, 2048, 278, 2050, "random", True),
-        ("short_t", 2, 6_000, 2048, 278, 40, "random", False),
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # name, B, S, K, hop, C, weight, signal dtype, timed
+        ("perch_b32", BATCH, 160_000, 640, 320, 640, "random", f32, True),
+        ("perch_identity", BATCH, 160_000, 640, 320, 640, "identity", f32,
+         True),
+        ("v24_geometry", 4, 144_000, 2048, 278, 2050, "random", f32, True),
+        ("odd_hop", 4, 40_000, 1000, 161, 200, "random", f32, True),
+        ("perch_bf16_signal", 4, 160_000, 640, 320, 640, "identity", bf16,
+         False),
+        ("short_t", 2, 6_000, 2048, 278, 40, "random", f32, False),
     ]
     results = {}
-    for name, b, s, k, hop, c, kind, timed in cases:
+    for name, b, s, k, hop, c, kind, dtype, timed in cases:
         x = torch.from_numpy(
-            rng.normal(0, 0.1, (b, s)).astype(np.float32)).to(dev)
+            rng.normal(0, 0.1, (b, s)).astype(np.float32)).to(dev, dtype)
         w = (torch.eye(k) if kind == "identity" else torch.from_numpy(
             rng.normal(0, 0.02, (c, k)).astype(np.float32))).to(dev)
         layout = stft_conv.prepare_conv1d_weights(w)
@@ -226,7 +276,9 @@ def conv1d_kernel_phase(dev):
         err = float((got.float() - want.float()).abs().max())
         rel = err / float(want.float().abs().max())
         rec = {"phase": "kernel", "kernel": "conv1d_stft", "case": name,
-               "shape": list(got.shape), "max_abs_err": err,
+               "shape": list(got.shape), "hop": hop,
+               "signal_dtype": str(dtype).removeprefix("torch."),
+               "max_abs_err": err,
                "rel_err": rel, "rel_bound": CONV_REL_BOUND,
                **bound(nbytes(x, got) + c * k * 2, 2 * b * t * k * c)}
         check(rel < CONV_REL_BOUND, f"{name}: relative error {rel}")
@@ -236,11 +288,10 @@ def conv1d_kernel_phase(dev):
         if timed:
             xb = x.to(torch.bfloat16)[:, None, :]
             wb = w.to(torch.bfloat16)[:, None, :]
-            rec["ms"] = timed_ms(lambda: stft_conv.conv1d_stft(
-                x, w, hop, prepared=layout))
-            rec["plain_ms"] = timed_ms(
-                lambda: stft_conv.conv1d_stft_reference(x, w, hop))
-            rec["library_ms"] = timed_ms(
+            timed_against_plain(
+                rec,
+                lambda: stft_conv.conv1d_stft(x, w, hop, prepared=layout),
+                lambda: stft_conv.conv1d_stft_reference(x, w, hop),
                 lambda: F.conv1d(xb, wb, stride=hop))
         emit(rec)
         results[name] = rec
@@ -411,13 +462,14 @@ def steady_step(phase, clf, chunk):
               for name, us in by_name.most_common(8)]})
 
 
-def kernel_entry(name, source, replaces, launches, case):
+def kernel_entry(name, source, replaces, launches, case, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"],
-            "library_ms": case.get("library_ms")}
+            "library_ms": case.get("library_ms"),
+            "share_of_bound": case["share_of_bound"], **extra}
 
 
 def main() -> int:
@@ -443,12 +495,21 @@ def main() -> int:
     print(smi, flush=True)
     t0 = time.perf_counter()
     _build.build_all()
+    build_s = time.perf_counter() - t0
+    # ptxas's report of each build: registers, spills and the wgmma
+    # serialisation warnings, per kernel instantiation.
+    ptxas = {name: _build.ptxas_summary(
+        name, _build.report_path(name).read_text())
+        for name in _build.SOURCES}
     emit({"phase": "card", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "kernels": list(_build.SOURCES),
-          "kernel_build_s": time.perf_counter() - t0,
-          "native_decoder_loaded": native_audio.available()})
+          "kernels": list(_build.SOURCES), "kernel_build_s": build_s,
+          "native_decoder_loaded": native_audio.available(),
+          "ptxas": ptxas,
+          "ptxas_spilling": [f["function"] for fs in ptxas.values()
+                             for f in fs
+                             if f["spill_store_bytes"] or f["warnings"]]})
 
     with tempfile.TemporaryDirectory(prefix="birda-smoke-") as tmp:
         tmp = Path(tmp)
@@ -500,7 +561,8 @@ def main() -> int:
     emit({"kernels": [
         kernel_entry("fused_logmel", "birda_tpu_torch/csrc/fused_logmel.cu",
                      "birda_tpu/ops/stft_conv.py:241",
-                     launches24.get("fused_logmel", 0), logmel["v24_b32"]),
+                     launches24.get("fused_logmel", 0), logmel["v24_b32"],
+                     composed_ms=logmel["v24_b32"]["composed_ms"]),
         kernel_entry("conv1d_stft", "birda_tpu_torch/csrc/conv1d_stft.cu",
                      "birda_tpu/ops/stft_conv.py:121",
                      launches_perch.get("conv1d_stft", 0),

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from birda_tpu_torch.ops import stft_conv
+from torch_kernel_layout import span_frames, unswizzle
 
 REL_BOUND = 2e-2
 
@@ -89,42 +90,75 @@ def test_other_devices_raise():
         stft_conv.conv1d_stft(x, torch.empty((8, 512)), 160)
 
 
-TILES = (128, 128, 32)  # csrc/conv1d_stft.cu: TILE_T, TILE_C, TILE_K
+TILES = (128, 128, 64)  # csrc/conv1d_stft.cu: TILE_T, TILE_C, TILE_K
 
 
 @pytest.mark.parametrize("b,s,k,hop,c", GEOMETRIES)
 def test_kernel_layout_reproduces_plain_version(monkeypatch, b, s, k, hop,
                                                 c):
-    """The padded, tiled weight layout the CUDA kernel reads, walked in the
-    kernel's order (channel tiles, K chunks, frames staged with window
-    positions past K zeroed) in float64, gives the plain version: the
-    padding and tiling lose nothing."""
+    """The swizzled weight images the CUDA kernel reads, read back through
+    the descriptor's swizzle and walked in the kernel's order (frames from
+    the padded span with window positions past K zeroed, channel tiles, K
+    chunks) in float64, give the plain version: the padding, tiling and
+    swizzle lose nothing."""
     monkeypatch.setattr(stft_conv, "_conv_tiles", lambda: TILES)
-    tile_t, tile_c, tile_k = TILES
+    _, tile_c, tile_k = TILES
     x, w = _case(b, s, k, c)
     wt = torch.from_numpy(w).to(torch.bfloat16)
     layout = stft_conv.prepare_conv1d_weights(wt)
     n_ct, n_kc = layout.w.shape[:2]
-    assert layout.w.shape == (n_ct, n_kc, tile_k, tile_c)
+    assert layout.w.shape == (n_ct, n_kc, tile_c, tile_k)
     assert (n_ct * tile_c >= c > (n_ct - 1) * tile_c
             and n_kc * tile_k >= k > (n_kc - 1) * tile_k)
 
     t = (s - k) // hop + 1
-    n_frames = -(-t // tile_t) * tile_t
-    sig = np.zeros((b, max(s, (n_frames - 1) * hop + n_kc * tile_k)))
-    sig[:, :s] = _bf16(x)
-    frames = np.stack([sig[:, i * hop:i * hop + n_kc * tile_k]
-                       for i in range(n_frames)], axis=1)  # [B, Tp, Kp]
-    frames[..., k:] = 0.0  # staged as zeros past K
-    wp = layout.w.double().numpy()
+    frames = span_frames(_bf16(x).astype(np.float64), hop, k,
+                         n_kc * tile_k, t)  # [B, T, Kp]
+    wimg = unswizzle(layout.w.double().numpy())  # [n_ct, n_kc, Cp, Kp]
     out = np.concatenate([
-        sum(frames[..., j * tile_k:(j + 1) * tile_k] @ wp[ct, j]
+        sum(frames[..., j * tile_k:(j + 1) * tile_k] @ wimg[ct, j].T
             for j in range(n_kc))
-        for ct in range(n_ct)], axis=-1)  # [B, Tp, Cp]
-    got = out[:, :t, :c].transpose(0, 2, 1)
+        for ct in range(n_ct)], axis=-1)  # [B, T, Cp]
+    got = out[..., :c].transpose(0, 2, 1)
     want = stft_conv.conv1d_stft_reference(
         torch.from_numpy(x), wt, hop).float().numpy()
     assert np.abs(got - want).max() / np.abs(want).max() < REL_BOUND
+
+
+@pytest.mark.parametrize("b,s,k,hop,c", GEOMETRIES)
+def test_swizzled_images_unswizzle_to_the_weight(monkeypatch, b, s, k, hop,
+                                                 c):
+    """Read back through the descriptor's swizzle formula, image (ct, j)
+    is exactly the bf16 weight's channels 128 ct.. and window positions
+    64 j.., zero-padded past C and K."""
+    monkeypatch.setattr(stft_conv, "_conv_tiles", lambda: TILES)
+    _, tile_c, tile_k = TILES
+    _, w = _case(b, s, k, c)
+    wt = torch.from_numpy(w).to(torch.bfloat16)
+    layout = stft_conv.prepare_conv1d_weights(wt)
+    n_ct, n_kc = layout.w.shape[:2]
+    padded = np.zeros((n_ct * tile_c, n_kc * tile_k))
+    padded[:c, :k] = wt.double().numpy()
+    wimg = unswizzle(layout.w.double().numpy())
+    for ct in range(n_ct):
+        for j in range(n_kc):
+            assert np.array_equal(
+                wimg[ct, j], padded[ct * tile_c:(ct + 1) * tile_c,
+                                    j * tile_k:(j + 1) * tile_k])
+    # The images really are swizzled: as stored they are not the tiles.
+    assert not np.array_equal(layout.w.double().numpy(), wimg)
+
+
+def test_wrapper_reads_float32_and_bf16_signals_alike():
+    """The wrapper makes no padded copy: the kernel reads the signal in
+    its own dtype. A float32 signal and its bf16 rounding give the same
+    result, and a signal shorter than one frame tile is taken."""
+    x, w = _case(2, 6_000, 2048, 40)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    got32 = stft_conv.conv1d_stft(xt, wt, 278)
+    got16 = stft_conv.conv1d_stft(xt.to(torch.bfloat16), wt, 278)
+    assert got32.shape[2] == (6_000 - 2048) // 278 + 1 < TILES[0]
+    assert torch.equal(got32, got16)
 
 
 def test_layout_refuses_a_weight_that_is_not_two_dimensional(monkeypatch):
@@ -138,6 +172,7 @@ def test_layout_refuses_a_weight_that_is_not_two_dimensional(monkeypatch):
     pytest.param(32, 160_000, 640, 320, 640, id="perch"),
     pytest.param(4, 144_000, 2048, 278, 2050, id="v24"),
     pytest.param(2, 6_000, 2048, 278, 40, id="short-t"),
+    pytest.param(2, 20_000, 1000, 161, 200, id="odd-hop"),
 ])
 def test_card_kernel_matches_plain_version(b, s, k, hop, c):
     """On a CUDA card: the hand-written kernel against its plain version

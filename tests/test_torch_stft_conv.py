@@ -20,6 +20,7 @@ import torch
 from birda_tpu.ops.melspec import hann, mel_filterbank
 
 from birda_tpu_torch.ops import stft_conv
+from torch_kernel_layout import span_frames, unswizzle
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -116,39 +117,114 @@ def test_module_imports_without_nvcc():
     assert "refused: nvcc not found" in r.stdout
 
 
+def test_library_digest_covers_the_shared_header(tmp_path, monkeypatch):
+    """Both kernels include csrc/strided_window_gemm.cuh: editing it must
+    rebuild both libraries, editing one kernel's source only its own. The
+    ptxas report lies beside the library."""
+    from birda_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in _build.CSRC_DIR.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    assert (csrc / "strided_window_gemm.cuh").exists()
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    before = {n: _build.library_path(n) for n in _build.SOURCES}
+    assert before == {n: _build.library_path(n) for n in _build.SOURCES}
+
+    header = csrc / "strided_window_gemm.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build.library_path(n) for n in _build.SOURCES}
+    assert all(after[n] != before[n] for n in _build.SOURCES)
+
+    src = csrc / "fused_logmel.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert _build.library_path("fused_logmel") != after["fused_logmel"]
+    assert _build.library_path("conv1d_stft") == after["conv1d_stft"]
+
+    report = _build.report_path("conv1d_stft")
+    assert report.parent == after["conv1d_stft"].parent
+    assert report.name == after["conv1d_stft"].stem + ".ptxas.txt"
+
+
+PTXAS_REPORT = """\
+ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async \
+instructions are serialized due to insufficient register resources for the \
+function '_ZN48_GLOBAL__N__daebd5df_15_fused_logmel_cu_c92a37c319fused_\
+logmel_kernelILi8ELb1EEEvPKviPK13__nv_bfloat16S5_PS3_iiiiiiiif'
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__daebd5df_15_fused_\
+logmel_cu_c92a37c319fused_logmel_kernelILi8ELb0EEEvPKviPK13__nv_bfloat16S5_\
+PS3_iiiiiiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN48_GLOBAL__N__daebd5df_15_fused_\
+logmel_cu_c92a37c319fused_logmel_kernelILi8ELb0EEEvPKviPK13__nv_bfloat16S5_\
+PS3_iiiiiiiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 2 barriers
+ptxas info    : Compile time = 1981.817 ms
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__daebd5df_15_fused_\
+logmel_cu_c92a37c319fused_logmel_kernelILi8ELb1EEEvPKviPK13__nv_bfloat16S5_\
+PS3_iiiiiiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN48_GLOBAL__N__daebd5df_15_fused_\
+logmel_cu_c92a37c319fused_logmel_kernelILi8ELb1EEEvPKviPK13__nv_bfloat16S5_\
+PS3_iiiiiiiif
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 168 registers, used 2 barriers, 8 bytes cumulative stack \
+size
+"""
+
+
+def test_ptxas_summary_reads_registers_spills_and_warnings():
+    """The ptxas -v report that chip_smoke.py prints, one record per kernel
+    instantiation, a warning printed before its function's entry included."""
+    from birda_tpu_torch.ops import _build
+
+    got = _build.ptxas_summary("fused_logmel", PTXAS_REPORT)
+    assert got == [
+        {"function": "fused_logmel_kernel<8, false>", "registers": 168,
+         "stack_bytes": 0, "spill_store_bytes": 0, "spill_load_bytes": 0,
+         "warnings": []},
+        {"function": "fused_logmel_kernel<8, true>", "registers": 168,
+         "stack_bytes": 8, "spill_store_bytes": 4, "spill_load_bytes": 4,
+         "warnings": ["C7512"]},
+    ]
+
+
+TILES = (128, 64, 64)  # csrc/fused_logmel.cu: TILE_T, TILE_BINS, TILE_K
+
+
 @pytest.mark.parametrize("geo,s", GEOMETRIES)
 def test_kernel_layout_reproduces_plain_version(monkeypatch, geo, s):
-    """The padded, tiled weight layout the CUDA kernel reads, evaluated
-    with the kernel's loop order (bin tiles, K chunks, bf16 power, mel
-    accumulated across tiles) in float64, gives the plain version's
-    log-mel: the padding and tiling lose nothing."""
-    tile_t, tile_bins, tile_k = 64, 64, 64  # csrc/fused_logmel.cu
-    monkeypatch.setattr(stft_conv, "_tiles",
-                        lambda: (tile_t, tile_bins, tile_k))
+    """The swizzled weight images the CUDA kernel reads, read back through
+    the descriptor's swizzle and evaluated with the kernel's loop order
+    (frames from the padded span, bin tiles, K chunks, bf16 power, mel
+    accumulated across tiles) in float64, give the plain version's
+    log-mel: the padding, tiling and swizzle lose nothing."""
+    monkeypatch.setattr(stft_conv, "_tiles", lambda: TILES)
+    _, tile_bins, tile_k = TILES
     x, w, fb = _case(geo, s)
     wt = torch.from_numpy(w).to(torch.bfloat16)
     fbt = torch.from_numpy(fb).to(torch.bfloat16)
     layout = stft_conv.prepare_logmel_weights(wt, fbt)
     n_tiles, n_kc = layout.w.shape[:2]
-    assert layout.fb.shape == (n_tiles * tile_bins,
-                               -(-fb.shape[1] // 32) * 32)
+    mp = -(-fb.shape[1] // 32) * 32
+    assert layout.w.shape == (n_tiles, n_kc, 2 * tile_bins, tile_k)
+    assert layout.fb.shape == (n_tiles, mp, tile_bins)
 
     hop, k = geo["hop"], w.shape[1]
     t = (s - k) // hop + 1
-    sig = np.zeros((2, max(s, (t - 1) * hop + n_kc * tile_k)), np.float64)
-    sig[:, :s] = torch.from_numpy(x).to(torch.bfloat16).double().numpy()
-    frames = np.stack([sig[:, i * hop:i * hop + n_kc * tile_k]
-                       for i in range(t)], axis=1)  # [B, T, Kp]
-    wp = layout.w.double().numpy()
-    fbp = layout.fb.double().numpy()
-    mel = np.zeros((2, t, fbp.shape[1]))
+    frames = span_frames(torch.from_numpy(x).to(torch.bfloat16).double()
+                         .numpy(), hop, k, n_kc * tile_k, t)
+    wimg = unswizzle(layout.w.double().numpy())    # [tiles, kc, 128, 64]
+    fbimg = unswizzle(layout.fb.double().numpy())  # [tiles, mp, 64]
+    mel = np.zeros((2, t, mp))
     for j in range(n_tiles):
-        acc = sum(frames[..., c * tile_k:(c + 1) * tile_k] @ wp[j, c]
+        acc = sum(frames[..., c * tile_k:(c + 1) * tile_k] @ wimg[j, c].T
                   for c in range(n_kc))
         re, im = acc[..., :tile_bins], acc[..., tile_bins:]
         power = torch.from_numpy(re * re + im * im).float() \
             .to(torch.bfloat16).double().numpy()
-        mel += power @ fbp[j * tile_bins:(j + 1) * tile_bins]
+        mel += power @ fbimg[j].T
     got = np.log(mel[..., :fb.shape[1]] + 1e-6)
     want = stft_conv.fused_logmel_reference(
         torch.from_numpy(x), wt, fbt, hop, 1e-6).float().numpy()
@@ -157,8 +233,101 @@ def test_kernel_layout_reproduces_plain_version(monkeypatch, geo, s):
     assert err.max() < MAX_BOUND
 
 
+@pytest.mark.parametrize("m", list(range(32, 257, 32)) + [1, 100])
+@pytest.mark.parametrize("geo", [pytest.param(V24, id="v24"),
+                                 pytest.param(V30, id="v30")])
+def test_swizzled_images_unswizzle_to_the_weights(monkeypatch, geo, m):
+    """Read back through the descriptor's swizzle formula, the images give
+    ``w`` and ``fb`` exactly, zero-padded: chunk (j, c) row n < 64 is cos
+    row 64 j + n, row 64 + n its -sin row, column k window position
+    64 c + k; filterbank image j row n is mel column n of bins 64 j..."""
+    monkeypatch.setattr(stft_conv, "_tiles", lambda: TILES)
+    _, tb, tk = TILES
+    w, _ = _frontend(geo["n_fft"], geo["banks"], geo["sample_rate"])
+    bins, k = w.shape[0] // 2, w.shape[1]
+    fb = np.random.default_rng(m).uniform(0, 1, (bins, m)).astype(np.float32)
+    wt = torch.from_numpy(w).to(torch.bfloat16)
+    fbt = torch.from_numpy(fb).to(torch.bfloat16)
+    layout = stft_conv.prepare_logmel_weights(wt, fbt)
+    n_tiles, n_kc = layout.w.shape[:2]
+    wimg = unswizzle(layout.w.double().numpy())
+    fbimg = unswizzle(layout.fb.double().numpy())
+
+    cos = np.zeros((n_tiles * tb, n_kc * tk))
+    sin = np.zeros_like(cos)
+    cos[:bins, :k] = wt[:bins].double().numpy()
+    sin[:bins, :k] = wt[bins:].double().numpy()
+    for j in range(n_tiles):
+        for c in range(n_kc):
+            rows, cols = slice(j * tb, (j + 1) * tb), slice(c * tk,
+                                                            (c + 1) * tk)
+            assert np.array_equal(wimg[j, c, :tb], cos[rows, cols])
+            assert np.array_equal(wimg[j, c, tb:], sin[rows, cols])
+    fbp = np.zeros((n_tiles * tb, fbimg.shape[1]))
+    fbp[:bins, :m] = fbt.double().numpy()
+    assert fbimg.shape[1] == -(-m // 32) * 32
+    assert np.array_equal(fbimg.transpose(0, 2, 1).reshape(fbp.shape), fbp)
+
+
+@pytest.mark.parametrize("hop", [278, 320, 279, 161, 16, 17, 1024])
+def test_frame_cursor_reads_every_frame_sample(hop):
+    """The consumers' address arithmetic (strided_window_gemm.cuh::
+    FrameCursor: rewind, then step16 per 16-deep step) finds window
+    position k of frame r at r (hop + pad) + k + pad (k / hop) of the
+    padded span, for both registers' window positions k and k + 8 of every
+    lane, and an even hop keeps each register's pair 4-byte aligned."""
+    pad = stft_conv.span_pad(hop)
+    assert pad % 2 == 0 and (hop % 2 or hop < 16 or (hop + pad) // 2 % 8 == 4)
+    k_pad = 2048
+    for tq in range(4):
+        ka, kb = 2 * tq, 2 * tq + 8
+        ga = ka + (pad if ka >= hop else 0)
+        ba = 2 * hop if ka >= hop else hop
+        gb = kb + (pad if kb >= hop else 0)
+        bb = 2 * hop if kb >= hop else hop
+        while ka < k_pad:
+            for k, g in ((ka, ga), (kb, gb)):
+                for r in (0, 8, 127):
+                    q = r * hop + k
+                    want = (q // hop) * (hop + pad) + q % hop
+                    got = r * (hop + pad) + g
+                    if pad:  # the cursor assumes hop >= 16 when padding
+                        assert got == want, (hop, tq, k, r)
+                        assert got % 2 == 0
+            ka, ga = ka + 16, ga + 16
+            if ka >= ba:
+                ga, ba = ga + pad, ba + hop
+            kb, gb = kb + 16, gb + 16
+            if kb >= bb:
+                gb, bb = gb + pad, bb + hop
+
+
+def test_span_budget_refuses_what_shared_memory_cannot_hold():
+    """The block's shared memory at the main paths' geometries, and the
+    typed refusal of a span that does not fit."""
+    assert stft_conv.span_smem_bytes(278, 2048) < stft_conv.SMEM_LIMIT
+    assert stft_conv.span_smem_bytes(
+        320, 640, stft_conv.CONV_STAGING_BYTES) < stft_conv.SMEM_LIMIT
+    stft_conv._check_span("fused_logmel", 278, 2048, 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        stft_conv._check_span("fused_logmel", 1024, 2048, 0)
+
+
+def test_wrapper_reads_float32_and_bf16_signals_alike():
+    """The wrapper makes no padded copy: the kernel reads the signal in
+    its own dtype. A float32 signal and its bf16 rounding give the same
+    result, and a signal shorter than one frame tile is taken."""
+    x, w, fb = _case(V24, 6_000)
+    xt, wt, fbt = (torch.from_numpy(a) for a in (x, w, fb))
+    got32 = stft_conv.fused_logmel(xt, wt, fbt, V24["hop"], 1e-6)
+    got16 = stft_conv.fused_logmel(xt.to(torch.bfloat16), wt, fbt,
+                                   V24["hop"], 1e-6)
+    assert got32.shape[1] == (6_000 - 2048) // V24["hop"] + 1 < TILES[0]
+    assert torch.equal(got32, got16)
+
+
 def test_layout_refuses_mismatched_or_too_wide_banks(monkeypatch):
-    monkeypatch.setattr(stft_conv, "_tiles", lambda: (64, 64, 64))
+    monkeypatch.setattr(stft_conv, "_tiles", lambda: TILES)
     with pytest.raises(ValueError, match="rows for"):
         stft_conv.prepare_logmel_weights(torch.zeros(10, 512),
                                          torch.zeros(6, 16))
@@ -185,6 +354,31 @@ def test_card_kernel_matches_plain_version(geo):
     torch.cuda.synchronize()
     assert stft_conv.LAUNCHES["fused_logmel"] == before + 1
     want = stft_conv.fused_logmel_reference(x, w, fb, geo["hop"], 1e-6)
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs().flatten()
+    assert float(torch.quantile(err, 0.99)) < Q99_BOUND
+    assert float(err.max()) < MAX_BOUND
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("m", list(range(32, 257, 32)))
+@pytest.mark.parametrize("hop", [pytest.param(320, id="even-hop"),
+                                 pytest.param(279, id="odd-hop")])
+def test_card_kernel_every_mel_width_and_odd_hop(hop, m):
+    """On a CUDA card: every mel width the register tiling holds, at an
+    even and an odd hop, against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU form")
+    dev = torch.device("cuda", 0)
+    w, _ = _frontend(1024, ((m, 50.0, 16_000.0),), 32_000)
+    x = np.random.default_rng(m).normal(0, 0.1, (3, 40_000)) \
+        .astype(np.float32)
+    fb = np.random.default_rng(hop).uniform(0, 0.05, (513, m)) \
+        .astype(np.float32)
+    x, w, fb = (torch.from_numpy(a).to(dev) for a in (x, w, fb))
+    got = stft_conv.fused_logmel(x, w, fb, hop, 1e-6)
+    torch.cuda.synchronize()
+    want = stft_conv.fused_logmel_reference(x, w, fb, hop, 1e-6)
     assert torch.isfinite(got.float()).all()
     err = (got.float() - want.float()).abs().flatten()
     assert float(torch.quantile(err, 0.99)) < Q99_BOUND
