@@ -3,7 +3,7 @@
     from birda_tpu_torch.api import analyze
 
     result = analyze(["meadow.wav"], model="birdnet-v24", device="gpu",
-                     precision="bf16")
+                     precision="int8")
     for f in result:
         for d in f.detections:
             print(d.start_time, d.scientific_name, d.confidence)
@@ -52,10 +52,12 @@ class AnalyzeResult:
 
     files: list[FileResult]
     exit_code: int
-    #: The backend status (``requested``/``actual``/``fallback_reason``)
-    #: and the run summary the pipeline reported.
+    #: The backend status (``requested``/``actual``/``fallback_reason``),
+    #: the model's precision report (None for fp32; the int8/mixed
+    #: selection counts) and the run summary the pipeline reported.
     backend: Optional[dict] = None
     summary: Optional[dict] = None
+    precision: Optional[dict] = None
 
     @property
     def detections(self) -> list[Detection]:
@@ -124,11 +126,13 @@ class _RunCollector(_Collector):
         super().__init__()
         self.backend = None
         self.summary = None
+        self.precision = None
 
     def pipeline_started(self, total_files, model, min_confidence,
                          execution_provider, range_filter=None,
                          precision=None, sharding=None):
         self.backend = execution_provider
+        self.precision = precision
 
     def pipeline_completed(self, summary):
         self.summary = summary
@@ -252,4 +256,5 @@ def analyze(
                                     error="not a supported audio file"))
     return AnalyzeResult(files=files, exit_code=exit_code,
                          backend=collector.backend,
-                         summary=collector.summary)
+                         summary=collector.summary,
+                         precision=collector.precision)

@@ -99,10 +99,20 @@ def build_parser() -> argparse.ArgumentParser:
     a.add_argument("--output-mode", choices=["human", "json", "ndjson"])
     a.add_argument("--decode-workers", type=int, default=0,
                    help="Decode threads per file: 0 = auto, 1 = one.")
-    a.add_argument("--precision", choices=["fp32", "bf16"], default="fp32",
-                   help="fp32 = full fp32 (TF32 off); bf16 = bf16 "
-                        "matmuls/convs with fp32 accumulation and the fused "
-                        "front-end kernel.")
+    a.add_argument("--precision", choices=["fp32", "bf16", "mixed", "int8"],
+                   default="fp32",
+                   help="ONNX graph precision: fp32 = full fp32 (TF32 off); "
+                        "bf16 = bf16 matmuls/convs with fp32 accumulation "
+                        "and the fused front-end kernel; mixed = bf16 "
+                        "compute with calibrated int8 storage of the large "
+                        "boundary streams; int8 = calibrated int8 "
+                        "quantization of the heavy matmuls/convs with int32 "
+                        "accumulation (the TensorRT-int8 analogue).")
+    a.add_argument("--calibration-audio", type=Path,
+                   help="Representative audio (file or directory) to "
+                        "calibrate int8 activation scales on (--precision "
+                        "int8/mixed); default is a built-in synthetic set "
+                        "whose scales are cached per graph.")
     return parser
 
 
@@ -174,6 +184,7 @@ def analyze(args: argparse.Namespace) -> int:
         dual_output_mode=dual,
         decode_workers=args.decode_workers,
         precision=args.precision,
+        calibration_audio=args.calibration_audio,
     )
     try:
         code = analyze_files(options, config, reporter)
@@ -187,7 +198,12 @@ def analyze(args: argparse.Namespace) -> int:
 
 
 def main(argv: list[str] | None = None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.calibration_audio is not None and \
+            args.precision not in ("int8", "mixed"):
+        parser.error("--calibration-audio only applies with --precision "
+                     "int8/mixed")
     return analyze(args)  # the only subcommand
 
 

@@ -9,6 +9,8 @@ fields and names; the native flax backbone is not part of this port.
 
 from __future__ import annotations
 
+import logging
+import os
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Callable
@@ -18,6 +20,7 @@ import torch
 
 from .contracts import ModelConfig
 
+logger = logging.getLogger(__name__)
 
 @dataclass
 class LoadedModel:
@@ -35,7 +38,8 @@ class LoadedModel:
     #: by every batch shape). The classifier calls this after backend
     #: selection.
     bind_device: Callable[[torch.device], None] | None = None
-    #: reduced-precision observability: {"mode": "bf16"} or None for fp32.
+    #: reduced-precision observability: {"mode": "bf16"}, the int8/mixed
+    #: selection counts (:func:`onnx_model_int8`), or None for fp32.
     precision_info: dict | None = None
 
     @property
@@ -86,6 +90,77 @@ def onnx_model(
                                  cast_float=dtype is not None)
     if dtype is not None:
         model.precision_info = {"mode": "bf16"}
+    return model
+
+
+def onnx_model_int8(
+    path: Path | str | bytes,
+    config: ModelConfig,
+    labels: list[str],
+    calibration,
+    compute_dtype: torch.dtype | None = None,
+    storage_only: bool = False,
+) -> LoadedModel:
+    """Load an ONNX graph with calibrated int8 execution (the TensorRT-int8
+    analogue; see :mod:`birda_tpu_torch.onnx.quantize` for the scheme and
+    the selection rules).
+
+    ``calibration`` is a
+    :class:`~birda_tpu_torch.onnx.quantize.CalibrationResult`.
+    ``compute_dtype`` governs the non-quantized ops (``torch.bfloat16``, or
+    None for fp32); quantized weights live as int8.
+
+    ``storage_only=True`` is ``--precision mixed``: no node quantizes —
+    compute (and weights) stay at ``compute_dtype`` and the calibration
+    scales only back int8 *storage* of the large boundary streams
+    (``boundary_store="storage"``).
+    """
+    from ..onnx.quantize import int8_throughput_advisory, lower_int8
+
+    # The boundary-storage policy can be re-tuned for a real export
+    # without a code change (the JAX package's knob); mixed mode IS a
+    # storage policy, so the knob does not apply there.
+    if storage_only:
+        boundary = "storage"
+    else:
+        boundary = os.environ.get("BIRDA_INT8_BOUNDARY", "all")
+    fn = lower_int8(path if isinstance(path, bytes) else str(path),
+                    calibration, compute_dtype=compute_dtype,
+                    boundary_store=boundary)
+    model = _loaded_from_onnx_fn(fn, config, labels,
+                                 cast_float=compute_dtype == torch.bfloat16,
+                                 source="onnx-mixed" if storage_only
+                                 else "onnx-int8")
+    model.precision_info = {
+        "mode": "mixed" if storage_only else "int8",
+        "quantized_nodes": len(fn.quantized_nodes),
+        "int8_boundary_tensors": len(fn.int8_boundary_tensors),
+        "boundary_store": boundary,
+        "skipped_nodes": len(fn.skipped_nodes),
+    }
+    if storage_only:
+        # Mixed mode never attempts node quantization (the selection gates
+        # are forced shut), so "skipped" counts would misread as selection
+        # failures; and the advisory below is about int8 COMPUTE epilogues,
+        # which mixed has none of.
+        del model.precision_info["skipped_nodes"]
+        return model
+    # Static throughput advisory, evaluated at the large-batch shape where
+    # the weight savings are fully amortized: it runs the graph on meta
+    # tensors (shapes only). As in the JAX package, it never blocks a load.
+    try:
+        probe = torch.empty((256, config.sample_count), dtype=torch.float32,
+                            device="meta")
+        advisory = int8_throughput_advisory(fn, probe)
+    except Exception:  # noqa: BLE001 — advisory must never block a load
+        advisory = None
+    if advisory is not None:
+        logger.warning("--precision int8: %s", advisory["message"])
+        model.precision_info["advisory"] = {
+            "compute_shaped": True,
+            "intensity_flop_per_byte": round(
+                advisory["intensity_flop_per_byte"], 1),
+        }
     return model
 
 

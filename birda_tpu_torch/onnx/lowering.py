@@ -17,6 +17,12 @@ environment of values, the same design as the JAX evaluator:
 - Elementwise ops promote like ``jax.numpy``: a 0-d float32 constant
   promotes a bf16 tensor to float32 (``torch.promote_types`` on both
   dtypes), Python scalars stay weak.
+- Integer operands of Conv, MatMul and Gemm (the int8 path of
+  :mod:`birda_tpu_torch.onnx.quantize`) accumulate exactly in int32, the
+  JAX route's ``preferred_element_type=int32``: :func:`int_conv` and
+  :func:`int_matmul` pick a route by static shape (``torch._int_mm`` on the
+  card, an fp32 product only where every partial sum is an exact integer,
+  float64 products on the CPU) and never round.
 
 The op set is what the full-scale BirdNET v2.4 / v3.0 and Perch v2 graphs
 (:mod:`birda_tpu_torch.onnx.fullscale`) emit, plus the fused spectrogram
@@ -31,6 +37,7 @@ A graph outside the op set fails at load with the full list
 
 from __future__ import annotations
 
+import threading
 from contextlib import contextmanager
 from typing import Any
 
@@ -87,6 +94,27 @@ def _host_array(x) -> np.ndarray:
     return np.require(a, requirements=["C", "W"])
 
 
+def _dtype_kind(x) -> str:
+    """numpy dtype kind (``f``, ``i``, ``u``, ``b``, ``c``) of a host value
+    or a tensor, without reading it, as the JAX evaluator sees it: bfloat16
+    is kind ``V`` there (ml_dtypes' bfloat16 is a numpy void type), so its
+    kind tests for ``f`` pass float32 but not bf16 values — which decides,
+    for one, which tensors the int8 path stores as int8."""
+    if isinstance(x, torch.Tensor):
+        dt = x.dtype
+        if dt == torch.bfloat16:
+            return "V"
+        if dt.is_floating_point:
+            return "f"
+        if dt.is_complex:
+            return "c"
+        if dt == torch.bool:
+            return "b"
+        return "i" if dt.is_signed else "u"
+    dt = getattr(x, "dtype", None)
+    return dt.kind if dt is not None else np.asarray(x).dtype.kind
+
+
 def _device_of(*xs) -> torch.device:
     for x in xs:
         if isinstance(x, torch.Tensor):
@@ -112,12 +140,165 @@ def _full_precision():
          mm.allow_bf16_reduced_precision_reduction) = saved
 
 
+# -- exact integer products ----------------------------------------------------
+
+#: Reduction depth up to which an fp32 product of int8 operands is exact:
+#: 1040 · 127² < 2²⁴, so every partial sum, in any order, is an integer that
+#: float32 holds exactly.
+EXACT_FP32_DEPTH = 1040
+#: ``torch._int_mm`` on the card (cuBLASLt, int8 -> int32) takes more than 16
+#: rows, and inner and output widths that are multiples of 8.
+INT_MM_MIN_ROWS = 17
+INT_MM_ALIGN = 8
+
+
+def int_mm_weight(w: torch.Tensor) -> torch.Tensor:
+    """A ``[K, N]`` int8 weight as ``torch._int_mm`` takes it: contiguous,
+    zero-padded to multiples of 8 (zeros add nothing to an integer sum).
+    Made once per weight."""
+    k, n = w.shape
+    pk, pn = -k % INT_MM_ALIGN, -n % INT_MM_ALIGN
+    if pk or pn:
+        w = F.pad(w, (0, pn, 0, pk))
+    return w.contiguous()
+
+
+def _int_mm(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch._int_mm`` of ``a [M, K]`` and a weight from
+    :func:`int_mm_weight` (``n`` true output columns): ``a`` is zero-padded
+    to the weight's padded depth and to INT_MM_MIN_ROWS rows, and the result
+    sliced back."""
+    m, k = a.shape
+    kp = b.shape[0]
+    pm = max(m, INT_MM_MIN_ROWS) - m
+    if pm or kp != k:
+        a = F.pad(a, (0, kp - k, 0, pm))
+    out = torch._int_mm(a.contiguous(), b)
+    return out[:m, :n] if pm or out.shape[1] != n else out
+
+
+def int_matmul(a: torch.Tensor, b: torch.Tensor,
+               n: int | None = None) -> torch.Tensor:
+    """Exact ``[M, K] x [K, N] -> [M, N]`` int32 product of int8 operands.
+
+    ``b`` may already be laid out by :func:`int_mm_weight` (``n`` is then
+    the true output width). The card runs ``torch._int_mm``; the CPU, and
+    the meta device for shapes alone, take float64 products, exact for any
+    depth below 2^53 / 127^2.
+    """
+    k = a.shape[-1]
+    n = b.shape[1] if n is None else n
+    if a.device.type == "cuda":
+        if b.shape[0] % INT_MM_ALIGN or b.shape[1] % INT_MM_ALIGN:
+            b = int_mm_weight(b)
+        return _int_mm(a, b, n)
+    return torch.matmul(a.double(), b[:k, :n].double()).to(torch.int32)
+
+
+def int_conv_route(x_shape, w_shape, strides, pads, dilations, group,
+                   device_type: str) -> str:
+    """The exact route of an int8 conv, chosen from static shapes alone:
+
+    - ``float64`` off the card (float64 products, exact);
+    - ``fp32`` for a grouped (depthwise) conv: cuDNN/PyTorch fp32 with TF32
+      off, exact while the depth ``C_in/group · prod(kernel)`` is at most
+      EXACT_FP32_DEPTH, refused beyond;
+    - ``int_mm`` for a 1x1 stride-1 unpadded dense conv, a ``[N·H·W, C_in]
+      x [C_in, C_out]`` product (on the card 3.4x faster than the exact fp32
+      route at the widest 1x1 of the shipped graphs);
+    - ``im2col`` for any other dense conv: int8 windows times the weight
+      matrix through ``torch._int_mm`` (never cuDNN's fp32 algorithms,
+      whose Winograd and FFT forms are not exact on integers).
+    """
+    if device_type != "cuda":
+        return "float64"
+    kernel = list(w_shape[2:])
+    depth = int(w_shape[1] * np.prod(kernel))
+    if group > 1:
+        if depth > EXACT_FP32_DEPTH:
+            raise UnsupportedOnnxOp(
+                f"grouped int8 conv of reduction depth {depth}: no exact "
+                f"route beyond {EXACT_FP32_DEPTH}")
+        return "fp32"
+    pointwise = (all(k == 1 for k in kernel) and all(s == 1 for s in strides)
+                 and not any(p for pair in pads for p in pair))
+    return "int_mm" if pointwise else "im2col"
+
+
+def prepare_int_conv_weight(w: torch.Tensor, route: str) -> torch.Tensor:
+    """The int8 conv weight ``[C_out, C_in/group, *kernel]`` as ``route``
+    reads it: the padded ``[C_in·prod(kernel), C_out]`` matrix for the
+    ``_int_mm`` routes, a float copy for the float routes."""
+    if route in ("int_mm", "im2col"):
+        return int_mm_weight(w.reshape(w.shape[0], -1).T)
+    return w.to(torch.float32 if route == "fp32" else torch.float64)
+
+
+def int_conv(x: torch.Tensor, w: torch.Tensor, strides, pads, dilations,
+             group: int, route: str | None = None,
+             prepared: torch.Tensor | None = None) -> torch.Tensor:
+    """Exact int32 convolution of int8 ``x [N, C, *spatial]`` and int8
+    ``w [C_out, C/group, *kernel]``; ``pads`` is a ``(lo, hi)`` pair per
+    spatial dim. ``route`` defaults to :func:`int_conv_route`'s choice;
+    ``prepared`` is the weight from :func:`prepare_int_conv_weight` for that
+    route (made here when absent)."""
+    if route is None:
+        route = int_conv_route(tuple(x.shape), tuple(w.shape), strides, pads,
+                               dilations, group, x.device.type)
+    if prepared is None:
+        prepared = prepare_int_conv_weight(w, route)
+    if route in ("fp32", "float64"):
+        return _conv_float(x, prepared, strides, pads, dilations, group)
+    c_out = w.shape[0]
+    n, c = x.shape[:2]
+    if route == "int_mm":
+        rows = x.movedim(1, -1).reshape(-1, c)
+        out = _int_mm(rows, prepared, c_out)
+        return out.reshape(n, *x.shape[2:], c_out).movedim(-1, 1)
+    if route != "im2col":
+        raise ValueError(f"unknown int8 conv route {route!r}")
+    kernel = list(w.shape[2:])
+    spatial = len(kernel)
+    if any(p for pair in pads for p in pair):
+        x = F.pad(x, [v for pair in reversed(pads) for v in pair])
+    for d in range(spatial):
+        x = x.unfold(2 + d, (kernel[d] - 1) * dilations[d] + 1, strides[d])
+        if dilations[d] > 1:
+            x = x[..., ::dilations[d]]
+    out_sp = list(x.shape[2:2 + spatial])
+    # [N, C, *out, *kernel] -> [N, *out, C, *kernel]: rows of C·prod(kernel)
+    # in the weight's (c, k...) order.
+    cols = x.permute(0, *range(2, 2 + spatial), 1,
+                     *range(2 + spatial, 2 + 2 * spatial))
+    out = _int_mm(cols.reshape(-1, c * int(np.prod(kernel))), prepared, c_out)
+    return out.reshape(n, *out_sp, c_out).movedim(-1, 1)
+
+
+def _conv_float(x, w, strides, pads, dilations, group) -> torch.Tensor:
+    """An int8 conv computed in ``w``'s float dtype (TF32 off) and returned
+    as int32: exact where every partial sum is an exactly held integer."""
+    spatial = x.ndim - 2
+    # Contiguous NCHW: a channels-last input would send the depthwise conv
+    # to cuDNN rather than PyTorch's direct-summation kernel.
+    xf = x.to(dtype=w.dtype, memory_format=torch.contiguous_format)
+    lo = [p[0] for p in pads]
+    if lo != [p[1] for p in pads]:
+        xf = F.pad(xf, [v for pair in reversed(pads) for v in pair])
+        lo = [0] * spatial
+    conv = (F.conv1d, F.conv2d, F.conv3d)[spatial - 1]
+    with _full_precision():
+        out = conv(xf, w, None, strides, lo, dilations, group)
+    return out.to(torch.int32)
+
+
 class _Evaluator:
     """Executes a graph node by node over a value environment."""
 
     def __init__(self, graph, compute_dtype=None, opset: int = 0):
         self.graph = graph
         self.opset = opset
+        #: Per-thread state (the compute-cast suppression).
+        self._tls = threading.local()
         #: torch.bfloat16 for mixed precision, None for the fp32 route.
         self.compute_dtype = compute_dtype
         self.const: dict[str, np.ndarray] = {
@@ -141,6 +322,32 @@ class _Evaluator:
         self._logmel_layouts: dict[tuple, tuple] = {}
         #: Conv1d-STFT kernel weight layouts: (id(w), device) -> (w, layout).
         self._conv1d_layouts: dict[tuple, tuple] = {}
+        #: int8 weights laid out for their integer route: (id(w), route) ->
+        #: (w, layout).
+        self._int_layouts: dict[tuple, tuple] = {}
+
+    @property
+    def compute_dtype(self):
+        if getattr(self._tls, "cd_suppressed", False):
+            return None
+        return self._compute_dtype
+
+    @compute_dtype.setter
+    def compute_dtype(self, value):
+        self._compute_dtype = value
+
+    @contextmanager
+    def _no_compute_cast(self):
+        """Suppress the compute-dtype casts of matmul/conv operands inside
+        the block (the integer paths accumulate in int32 and must never see
+        a bf16 cast). Per thread, so that threads sharing one evaluator do
+        not strip each other's compute dtype; re-entrant."""
+        prev = getattr(self._tls, "cd_suppressed", False)
+        self._tls.cd_suppressed = True
+        try:
+            yield
+        finally:
+            self._tls.cd_suppressed = prev
 
     # -- execution ----------------------------------------------------------
 
@@ -418,10 +625,41 @@ class _Evaluator:
 
     # -- linear algebra ------------------------------------------------------
 
+    def _int_layout(self, w: torch.Tensor, route: str) -> torch.Tensor:
+        """``w`` laid out for an integer route, once per weight."""
+        key = (id(w), route)
+        hit = self._int_layouts.get(key)
+        if hit is None or hit[0] is not w:
+            layout = (int_mm_weight(w) if route == "matmul"
+                      else prepare_int_conv_weight(w, route))
+            hit = self._int_layouts[key] = (w, layout)
+        return hit[1]
+
+    def _int_matmul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Exact int32 product of int8 ``a [..., K]`` and ``b [K, N]``."""
+        if a.dtype != torch.int8 or b.dtype != torch.int8 or b.ndim != 2:
+            raise UnsupportedOnnxOp(
+                f"integer product of {a.dtype} [{tuple(a.shape)}] and "
+                f"{b.dtype} [{tuple(b.shape)}]: only int8 [.., K] x [K, N] "
+                "has an exact route")
+        wb = self._int_layout(b, "matmul") if a.device.type == "cuda" else b
+        out = int_matmul(a.reshape(-1, a.shape[-1]), wb, b.shape[1])
+        return out.reshape(*a.shape[:-1], b.shape[1])
+
+    def _int_conv(self, x, w, strides, pads, dilations, group):
+        route = int_conv_route(tuple(x.shape), tuple(w.shape), strides, pads,
+                               dilations, group, x.device.type)
+        return int_conv(x, w, strides, pads, dilations, group, route=route,
+                        prepared=self._int_layout(w, route))
+
     def op_MatMul(self, node, a, b):
         if _is_host(a) and _is_host(b):
             return np.matmul(a, b)
         a, b = self._mm_cast(_device_of(a, b), a, b)
+        if not (a.is_floating_point() or b.is_floating_point()):
+            # Integer operands: exact sums, float32 out (the JAX route's
+            # preferred element type).
+            return self._mm_out(self._int_matmul(a, b).float())
         return self._mm_out(self._contract(torch.matmul, a, b))
 
     def op_Gemm(self, node, a, b, c=None):
@@ -440,7 +678,10 @@ class _Evaluator:
             out = alpha * np.matmul(a, b)
         else:
             a, b = self._mm_cast(_device_of(a, b), a, b)
-            out = alpha * self._contract(torch.matmul, a, b)
+            if not (a.is_floating_point() or b.is_floating_point()):
+                out = alpha * self._int_matmul(a, b).float()
+            else:
+                out = alpha * self._contract(torch.matmul, a, b)
         if c is None:
             return out if _is_host(out) else self._mm_out(out)
         if _is_host(out):
@@ -510,9 +751,15 @@ class _Evaluator:
                                  frames, wm).transpose(1, 2)
             return self._mm_out(self._bias(out, b, 1))
         x, w = self._mm_cast(dev, x, w)
-        if not x.is_floating_point():
+        if x.is_floating_point() != w.is_floating_point():
             raise UnsupportedOnnxOp(
-                f"integer Conv (node '{node.name}') is not supported")
+                f"Conv (node '{node.name}') of {x.dtype} input and {w.dtype} "
+                "weight")
+        if not x.is_floating_point():
+            # Integer conv (the int8 path): exact int32 sums, no compute-dtype
+            # output cast, as the JAX route's preferred_element_type=int32.
+            out = self._int_conv(x, w, strides, pads, dilations, group)
+            return self._bias(out, b, spatial)
         lo = [p[0] for p in pads]
         hi = [p[1] for p in pads]
         if lo != hi:

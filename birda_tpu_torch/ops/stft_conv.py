@@ -222,9 +222,10 @@ def fused_logmel(x: torch.Tensor, w: torch.Tensor, fb: torch.Tensor,
 
     A CUDA tensor launches the kernel (``prepared`` is the layout of ``w``
     and ``fb`` from :func:`prepare_logmel_weights`, made here when absent)
-    or raises; a CPU tensor takes :func:`fused_logmel_reference`.
+    or raises; a CPU tensor takes :func:`fused_logmel_reference`, and a meta
+    tensor its output shape alone.
     """
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return fused_logmel_reference(x, w, fb, hop, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_logmel: unsupported device {x.device}")
@@ -314,9 +315,10 @@ def conv1d_stft(x: torch.Tensor, w: torch.Tensor, hop: int,
 
     A CUDA tensor launches the kernel (``prepared`` is the layout of ``w``
     from :func:`prepare_conv1d_weights`, made here when absent) or raises;
-    a CPU tensor takes :func:`conv1d_stft_reference`.
+    a CPU tensor takes :func:`conv1d_stft_reference`, and a meta tensor its
+    output shape alone.
     """
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return conv1d_stft_reference(x, w, hop)
     if x.device.type != "cuda":
         raise ValueError(f"conv1d_stft: unsupported device {x.device}")

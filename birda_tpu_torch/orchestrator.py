@@ -8,10 +8,13 @@ classifier. The JAX module imports jax at load, so its flow is ported here
 with the same names; the host code it calls is the port's own copy of the
 JAX package's modules (same subpackage and module names).
 
+All four precisions run: fp32, bf16, and the calibrated ``mixed`` and
+``int8`` (:mod:`birda_tpu_torch.onnx.quantize`), whose non-quantized ops
+compute in bf16 on the card and, as the card's test double, on the CPU too.
+
 Not yet ported, and refused with a typed error rather than run
-differently: ``--precision mixed``/``int8``, ``synthetic:`` model paths,
-``--bat``, ``--region-labels``, the geomodel range filter, ``--jobs`` above
-1 and ``--devices`` above 1.
+differently: ``synthetic:`` model paths, ``--bat``, ``--region-labels``,
+the geomodel range filter, ``--jobs`` above 1 and ``--devices`` above 1.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import time
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Optional
+
+import numpy as np
 
 from . import constants
 from .config import range_filter as rf_cfg
@@ -62,8 +67,8 @@ _MODEL_TYPE_TO_FAMILY = {
     ModelType.BSG_FINLAND: contracts.ModelFamily.BSG_FI_V44,
 }
 
-#: Precisions this port runs (the JAX package also has mixed and int8).
-PRECISIONS = ("fp32", "bf16")
+#: Precisions this port runs, the JAX package's four.
+PRECISIONS = ("fp32", "bf16", "mixed", "int8")
 
 
 def _not_yet_ported(what: str) -> ClassifierBuild:
@@ -111,8 +116,10 @@ class AnalyzeOptions:
     allow_download: bool = False
     region_labels: Optional[Path] = None
     decode_workers: int = 0
-    #: "fp32" (TF32 off) or "bf16" (bf16 matmuls/convs with fp32
-    #: accumulation and the fused front-end kernel).
+    #: "fp32" (TF32 off), "bf16" (bf16 matmuls/convs with fp32
+    #: accumulation and the fused front-end kernel), "mixed" (bf16 with
+    #: calibrated int8 storage of the large streams) or "int8" (calibrated
+    #: int8 convs/matmuls with exact int32 sums).
     precision: str = "fp32"
     calibration_audio: Optional[Path] = None
     stream_detections: bool = False
@@ -214,20 +221,28 @@ def resolve_decode_workers(options: AnalyzeOptions) -> int:
 
 
 def load_model_graph(mc: ModelConfig, name: str,
-                     precision: str = "fp32") -> LoadedModel:
+                     precision: str = "fp32", device: str = "auto",
+                     calibration_audio: Optional[Path] = None) -> LoadedModel:
     """Turn a config entry into a runnable graph: an ``.onnx`` file through
-    the torch lowering, in fp32 or bf16 (on any backend: on the CPU the
-    fused front-end takes its plain version)."""
+    the torch lowering, in any of :data:`PRECISIONS` (on any backend: on the
+    CPU the fused front-end takes its plain version). ``device`` is the
+    requested backend, on which int8/mixed calibrate."""
     import torch
 
     if precision not in PRECISIONS:
-        raise _not_yet_ported(f"--precision {precision}")
+        raise ConfigValidation(
+            f"precision must be one of {', '.join(PRECISIONS)} "
+            f"(got '{precision}')")
     if str(mc.path).startswith("synthetic:"):
         raise _not_yet_ported("the synthetic: native model path")
     family = _MODEL_TYPE_TO_FAMILY[mc.model_type]
     validate_model_config(name, mc)
     labels = read_geomodel_labels(mc.labels)  # one label per line
     try:
+        if precision in ("int8", "mixed"):
+            return _load_int8_model(mc, family, labels, calibration_audio,
+                                    device=device,
+                                    storage_only=precision == "mixed")
         return onnx_model(
             mc.path, contracts.contract_for(family), labels,
             dtype=torch.bfloat16 if precision == "bf16" else None)
@@ -236,6 +251,100 @@ def load_model_graph(mc: ModelConfig, name: str,
     except Exception as e:  # noqa: BLE001 — parse/lowering errors -> typed
         raise ClassifierBuild(f"cannot load model graph {mc.path}: {e}") \
             from e
+
+
+def _load_int8_model(mc: ModelConfig, family, labels: list[str],
+                     calibration_audio: Optional[Path], device: str = "auto",
+                     storage_only: bool = False) -> LoadedModel:
+    """Calibrated int8 execution of a float graph (the TensorRT-int8 engine
+    analogue; the reference caches those engines,
+    ``src/inference/classifier.rs:994-1057``, this caches the calibration
+    scales).
+
+    Scales from the built-in synthetic calibration set are cached per graph
+    digest under the cache dir, so repeat runs skip the calibration pass.
+    Explicit ``--calibration-audio`` always recalibrates. Calibration runs
+    fp32 on the requested backend's device.
+
+    The non-quantized ops compute in bf16 on every backend: the CPU route
+    is the card route's test double (the JAX package computes them in fp32
+    on the CPU, where XLA lacks a bf16 dot). ``storage_only=True`` is
+    ``--precision mixed``: no node quantizes; the calibration scales only
+    back int8 *storage* of the large boundary streams.
+    """
+    import torch
+
+    from .inference.backend import select_backend
+    from .models.zoo import onnx_model_int8
+    from .onnx.quantize import cached_calibration, calibrate
+
+    contract = contracts.contract_for(family)
+    data = Path(mc.path).read_bytes()
+    calib_device = select_backend(device)[0][0]
+    t0 = time.monotonic()
+    if calibration_audio is not None:
+        batches = _calibration_batches_from_audio(
+            calibration_audio, contract.sample_rate, contract.sample_count)
+        logger.info("calibrating int8 activation scales on %s...",
+                    calibration_audio)
+        calib = calibrate(data, batches, device=calib_device)
+        from_cache = False
+    else:
+        calib, from_cache = cached_calibration(
+            data, contract.sample_count, device=calib_device)
+    logger.info("int8 calibration scales %s in %.2fs",
+                "loaded from cache" if from_cache else "computed",
+                time.monotonic() - t0)
+    return onnx_model_int8(data, contract, labels, calib,
+                           compute_dtype=torch.bfloat16,
+                           storage_only=storage_only)
+
+
+def _calibration_batches_from_audio(path: Path, sample_rate: int,
+                                    sample_count: int,
+                                    batch: int = 8, max_batches: int = 4):
+    """Segment representative audio into calibration batches through the
+    same decode + resample stack the analysis itself uses."""
+    from .audio.decode import StreamingDecoder
+    from .ops.resample import resample_numpy
+
+    files = collect_input_files([Path(path)])
+    if not files:
+        raise ConfigValidation(
+            f"--calibration-audio {path}: no audio files found"
+        )
+    rows: list[np.ndarray] = []
+    batches: list[np.ndarray] = []
+    for f in files:
+        with StreamingDecoder(f) as dec:
+            src_rate = dec.sample_rate
+            src_seg = int(round(sample_count * src_rate / sample_rate))
+            while len(batches) < max_batches:
+                seg = dec.next_segment(src_seg, 0)
+                if seg is None:
+                    break
+                x = seg.samples
+                if src_rate != sample_rate:
+                    x = resample_numpy(x, src_rate, sample_rate)
+                if x.shape[0] < sample_count:
+                    x = np.pad(x, (0, sample_count - x.shape[0]))
+                rows.append(x[:sample_count].astype(np.float32))
+                if len(rows) == batch:
+                    batches.append(np.stack(rows))
+                    rows = []
+        if len(batches) >= max_batches:
+            break
+    if rows and not batches:
+        # Short clip: cycle its segments to fill one batch rather than fail.
+        orig = list(rows)
+        while len(rows) < batch:
+            rows.append(orig[(len(rows) - len(orig)) % len(orig)])
+        batches.append(np.stack(rows[:batch]))
+    if not batches:
+        raise ConfigValidation(
+            f"--calibration-audio {path}: could not decode any segments"
+        )
+    return batches
 
 
 def resolve_device(options: AnalyzeOptions, config: Config) -> str:
@@ -333,7 +442,9 @@ def analyze_files(options: AnalyzeOptions, config: Config,
         raise NoValidAudioFiles()
 
     device = resolve_device(options, config)
-    model = load_model_graph(mc, model_name, precision=options.precision)
+    model = load_model_graph(mc, model_name, precision=options.precision,
+                             device=device,
+                             calibration_audio=options.calibration_audio)
     species_list = resolve_species_filter(options, config)
     min_confidence = (
         options.min_confidence if options.min_confidence is not None

@@ -12,17 +12,23 @@ them (v2.4 at the CUDA default batch 64, an odd hop, a bf16 signal), timing
 ``fused_logmel`` beside a bf16 cuBLAS composition of the same front-end and
 ``conv1d_stft`` beside ``F.conv1d``. Then it drives
 ``birda_tpu_torch.api.analyze`` on two full-width graphs with random weights
-from a seed, in bf16:
+from a seed:
 
 - BirdNET v2.4 over two generated 120 s recordings (48 kHz; 44.1 kHz, which
-  runs the device resampler), through ``fused_logmel``;
+  runs the device resampler), through ``fused_logmel``, in bf16, int8 (twice:
+  the second run loads the cached calibration scales) and mixed;
 - Perch v2 over two generated 160 s recordings (32 kHz; 48 kHz, which runs
-  the device resampler), through ``conv1d_stft``.
+  the device resampler), through ``conv1d_stft``, in bf16 and int8 (twice).
 
 Each main path runs with the launch counts set to 0 just before it and read
-just after, and must have launched its kernel. Each model's bf16 route is
-compared with its fp32 route on one chunk. Each phase prints one JSON line;
-then come the card's name and power limit, the kernel summary line and, last,
+just after, and must have launched its kernel. Each model's bf16, int8 and
+(v2.4) mixed routes are compared with its fp32 route on one chunk, and each
+is timed and profiled on that chunk. The ``int8_ops`` phase holds the exact
+integer routes of the int8 convs and matmuls (``torch._int_mm`` and the exact
+fp32 depthwise route) bit for bit against CPU float64 products at the
+shapes of the two graphs' quantized nodes at batch 32, and times them beside
+the bf16 call of the same shape. Each phase prints one JSON line; then come
+the card's name and power limit, the kernel summary line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
 then non-zero and no result line is printed, as it is without a CUDA device
 or outside a checkout.
@@ -31,6 +37,7 @@ or outside a checkout.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -298,6 +305,163 @@ def conv1d_kernel_phase(dev):
     return results
 
 
+def int8_graph_report(name, onnx_path, sample_count):
+    """The int8 lowering of ``onnx_path`` (bf16 compute, the scales the
+    main path cached): its static cost report at batch 32, from a run on
+    meta tensors during which every integer product's shapes are recorded
+    (the int8_ops cases come from these). Returns the recorded convs and
+    matmuls."""
+    from unittest import mock
+
+    import torch
+
+    from birda_tpu_torch.onnx import lowering
+    from birda_tpu_torch.onnx.quantize import (cached_calibration,
+                                               int8_cost_report, lower_int8)
+
+    data = Path(onnx_path).read_bytes()
+    calib, _ = cached_calibration(data, sample_count, device="cuda")
+    fn = lower_int8(data, calib, compute_dtype=torch.bfloat16)
+    convs, mms = [], []
+    conv, matmul = lowering.int_conv, lowering.int_matmul
+
+    def record_conv(x, w, strides, pads, dilations, group, **kw):
+        convs.append((tuple(x.shape), tuple(w.shape), tuple(strides),
+                      tuple(tuple(p) for p in pads), tuple(dilations),
+                      group))
+        return conv(x, w, strides, pads, dilations, group, **kw)
+
+    def record_matmul(a, b, n=None):
+        mms.append((tuple(a.shape), tuple(b.shape)))
+        return matmul(a, b, n)
+
+    with mock.patch.object(lowering, "int_conv", record_conv), \
+            mock.patch.object(lowering, "int_matmul", record_matmul):
+        cost = int8_cost_report(fn, torch.empty(BATCH, sample_count))
+    emit({"phase": f"{name}_int8_cost", "batch": BATCH, **cost,
+          "quantized_nodes": len(fn.quantized_nodes),
+          "int8_boundary_tensors": len(fn.int8_boundary_tensors),
+          "int_convs": len(convs), "int_matmuls": len(mms)})
+    return sorted(set(convs)), sorted(set(mms))
+
+
+def int8_cases(convs24, mms24, convs_perch):
+    """The int8_ops cases: the widest (most MACs) and the narrowest (fewest
+    output channels) 1x1 conv, the largest 5x5 and 3x3 depthwise conv, and
+    Perch's deepest dense 3x3 conv, at batch 32 as the graphs run them; a
+    Gemm at v2.4's embedding head, at batch 32 and 1."""
+    import numpy as np
+
+    def macs(c):
+        x, w = c[0], c[1]
+        return int(np.prod(x)) // x[1] * w[0] * int(np.prod(w[1:]))
+
+    every = convs24 + convs_perch
+    pointwise = [c for c in every if c[5] == 1 and c[1][2:] == (1, 1)]
+    cases = {"widest_1x1": max(pointwise, key=macs),
+             "narrowest_1x1": min(pointwise, key=lambda c: (c[1][0], -macs(c)))}
+    for k in (5, 3):
+        dw = [c for c in every if c[5] > 1 and c[1][2:] == (k, k)]
+        if dw:
+            cases[f"depthwise_{k}x{k}"] = max(dw, key=macs)
+    dense = [c for c in convs_perch if c[5] == 1 and c[1][2:] == (3, 3)]
+    if dense:
+        cases["perch_deepest_dense_3x3"] = max(
+            dense, key=lambda c: (int(np.prod(c[1][1:])), macs(c)))
+    gemm = [("gemm_head", (BATCH, 1280), (1280, 1024)),
+            ("gemm_head_b1", (1, 1280), (1280, 1024))]
+    gemm += [(f"matmul_{i}", a, b) for i, (a, b) in enumerate(mms24)]
+    return cases, gemm
+
+
+def int8_ops_phase(cases, gemms, dev):
+    """Each integer route on the card at the quantized nodes' shapes,
+    bit for bit against the CPU float64 product (random int8, random-sign
+    ±127, and the extreme +127 x -127 operands), timed beside the bf16
+    ``F.conv2d``/``matmul`` of the same shape; a 1x1 conv whose depth allows
+    it is also timed through the exact fp32 route (the measurement behind
+    ``lowering.int_conv_route``'s choice of ``_int_mm`` for 1x1 convs)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from birda_tpu_torch.onnx import lowering
+
+    rng = np.random.default_rng(SEED)
+
+    def operands(shape, kind):
+        if kind == "random":
+            v = rng.integers(-127, 128, shape)
+        elif kind == "pm127":
+            v = 127 * rng.choice([-1, 1], shape)
+        else:
+            v = np.full(shape, 127 if kind == "x" else -127)
+        return torch.from_numpy(v.astype(np.int8))
+
+    results = {}
+    for name, (xs, ws, strides, pads, dil, group) in cases.items():
+        route = lowering.int_conv_route(xs, ws, strides, pads, dil, group,
+                                        "cuda")
+        exact = {}
+        for kind in ("random", "pm127", "extreme"):
+            x = operands(xs, "x" if kind == "extreme" else kind)
+            w = operands(ws, "w" if kind == "extreme" else kind)
+            want = lowering.int_conv(x, w, strides, pads, dil, group,
+                                     route="float64")
+            xd, wd = x.to(dev), w.to(dev)
+            prep = lowering.prepare_int_conv_weight(wd, route)
+            got = lowering.int_conv(xd, wd, strides, pads, dil, group,
+                                    route=route, prepared=prep)
+            exact[kind] = bool(torch.equal(got.cpu(), want))
+        depth = int(np.prod(ws[1:]))
+        rec = {"phase": "int8_ops", "case": name, "x": list(xs),
+               "w": list(ws), "strides": list(strides), "group": group,
+               "depth": depth, "route": route, "bit_exact": exact,
+               "macs": got.numel() * depth}
+        check(all(exact.values()), f"int8_ops {name}: not exact {exact}")
+        rec["ms"] = timed_ms(lambda: lowering.int_conv(
+            xd, wd, strides, pads, dil, group, route=route, prepared=prep))
+        xb, wb = xd.to(torch.bfloat16), wd.to(torch.bfloat16)
+        lo = [p[0] for p in pads]
+        if lo != [p[1] for p in pads]:
+            xb = F.pad(xb, [v for pair in reversed(pads) for v in pair])
+            lo = [0] * len(pads)
+        rec["bf16_ms"] = timed_ms(lambda: F.conv2d(xb, wb, None, strides, lo,
+                                                   dil, group))
+        if route == "int_mm" and depth <= lowering.EXACT_FP32_DEPTH:
+            f32 = lowering.prepare_int_conv_weight(wd, "fp32")
+            got = lowering.int_conv(xd, wd, strides, pads, dil, group,
+                                    route="fp32", prepared=f32)
+            rec["fp32_route_bit_exact"] = bool(torch.equal(got.cpu(), want))
+            check(rec["fp32_route_bit_exact"], f"int8_ops {name}: fp32 route")
+            rec["fp32_route_ms"] = timed_ms(lambda: lowering.int_conv(
+                xd, wd, strides, pads, dil, group, route="fp32",
+                prepared=f32))
+        emit(rec)
+        results[name] = rec
+    for name, a_shape, b_shape in gemms:
+        exact = {}
+        for kind in ("random", "pm127", "extreme"):
+            a = operands(a_shape, "x" if kind == "extreme" else kind)
+            b = operands(b_shape, "w" if kind == "extreme" else kind)
+            want = lowering.int_matmul(a, b)
+            ad = a.to(dev)
+            bd = lowering.int_mm_weight(b.to(dev))
+            got = lowering.int_matmul(ad, bd, b_shape[1])
+            exact[kind] = bool(torch.equal(got.cpu(), want))
+        rec = {"phase": "int8_ops", "case": name, "a": list(a_shape),
+               "b": list(b_shape), "route": "int_mm", "bit_exact": exact,
+               "macs": a_shape[0] * a_shape[1] * b_shape[1]}
+        check(all(exact.values()), f"int8_ops {name}: not exact {exact}")
+        rec["ms"] = timed_ms(lambda: lowering.int_matmul(ad, bd, b_shape[1]))
+        ab = ad.to(torch.bfloat16)
+        bb = b.to(dev, torch.bfloat16)
+        rec["bf16_ms"] = timed_ms(lambda: torch.matmul(ab, bb))
+        emit(rec)
+        results[name] = rec
+    return results
+
+
 def write_graph(spec, tmp: Path):
     """The full-scale graph of ``spec`` (random weights from ``SEED``), its
     ONNX file and its labels file."""
@@ -319,10 +483,11 @@ def write_graph(spec, tmp: Path):
 
 
 def main_path(phase, kernel, wavs, onnx_path, labels_path, model_type,
-              **kw):
-    """``analyze`` in bf16 at batch 32 on the card, with the launch counts
-    set to 0 just before and read just after; checks the run went through
-    ``kernel`` and produced finite confidences in [0, 1] for every file."""
+              precision="bf16", **kw):
+    """``analyze`` at ``precision`` and batch 32 on the card, with the
+    launch counts set to 0 just before and read just after; checks the run
+    went through ``kernel`` and produced finite confidences in [0, 1] for
+    every file. Returns the launch counts and the result."""
     import numpy as np
     import torch
 
@@ -333,13 +498,14 @@ def main_path(phase, kernel, wavs, onnx_path, labels_path, model_type,
     stft_conv.LAUNCHES.clear()
     t0 = time.perf_counter()
     result = analyze(wavs, model_path=onnx_path, labels_path=labels_path,
-                     model_type=model_type, device="gpu", precision="bf16",
-                     batch_size=BATCH, **kw)
+                     model_type=model_type, device="gpu",
+                     precision=precision, batch_size=BATCH, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(stft_conv.LAUNCHES)
     summary = result.summary or {}
-    rec = {"phase": phase, "backend": result.backend,
+    rec = {"phase": phase, "precision": result.precision,
+           "backend": result.backend,
            "exit_code": result.exit_code, "launches": launches,
            "files": [{"file": f.path.name, "detections": len(f.detections),
                       "error": f.error} for f in result.files],
@@ -363,7 +529,73 @@ def main_path(phase, kernel, wavs, onnx_path, labels_path, model_type,
     check(all(0.0 <= d.confidence <= 1.0 and np.isfinite(d.confidence)
               for d in result.detections),
           f"{phase}: confidences in [0, 1]")
-    return launches
+    return launches, result
+
+
+def detections_of(result):
+    return [[(d.start_time, d.end_time, d.scientific_name, d.confidence)
+             for d in f.detections] for f in result.files]
+
+
+def quantized_main_paths(suffix, kernel, wavs, onnx_path, labels_path,
+                         model_type, calib_log, mixed, **kw):
+    """int8 (and, for ``mixed``, mixed) ``analyze`` at batch 32: the first
+    int8 run calibrates on the built-in set and caches the scales, a second
+    int8 run loads them and must give identical detections, and mixed loads
+    them too. Checks each run's precision report: int8 quantizes nodes and
+    stores boundary tensors, mixed only stores. Returns the launch counts
+    by precision."""
+    from birda_tpu_torch.config.paths import cache_dir
+
+    calib_log.records.clear()
+    launches, first = main_path(f"main_path_int8{suffix}", kernel, wavs,
+                                onnx_path, labels_path, model_type,
+                                precision="int8", **kw)
+    info = first.precision or {}
+    check(info.get("mode") == "int8" and info.get("quantized_nodes", 0) > 0
+          and info.get("int8_boundary_tensors", 0) >= 1,
+          f"main_path_int8{suffix}: precision report {info}")
+    cached = sorted((cache_dir() / "int8_calib").glob("*.json"))
+    stamp = [p.stat().st_mtime_ns for p in cached]
+    _, again = main_path(f"main_path_int8_cached{suffix}", kernel, wavs,
+                         onnx_path, labels_path, model_type,
+                         precision="int8", **kw)
+    check(sorted((cache_dir() / "int8_calib").glob("*.json")) == cached
+          and [p.stat().st_mtime_ns for p in cached] == stamp,
+          f"main_path_int8_cached{suffix}: the cached scales were rewritten")
+    check(detections_of(again) == detections_of(first),
+          f"main_path_int8_cached{suffix}: detections differ from the first run")
+    out = {"int8": launches}
+    if mixed:
+        out["mixed"], res = main_path(f"main_path_mixed{suffix}", kernel,
+                                      wavs, onnx_path, labels_path,
+                                      model_type, precision="mixed", **kw)
+        info = res.precision or {}
+        check(info.get("mode") == "mixed"
+              and info.get("quantized_nodes") == 0
+              and info.get("int8_boundary_tensors", 0) >= 1,
+              f"main_path_mixed{suffix}: precision report {info}")
+    emit({"phase": f"calibration{suffix}", "cache_files": len(cached),
+          "runs": [{"scales": src, "seconds": sec}
+                   for src, sec in calib_log.records]})
+    check([src for src, _ in calib_log.records][:1] == ["computed"],
+          f"calibration{suffix}: the first int8 run did not calibrate")
+    check(all(src == "loaded from cache"
+              for src, _ in calib_log.records[1:]),
+          f"calibration{suffix}: a later run recalibrated")
+    return out
+
+
+class CalibrationLog(logging.Handler):
+    """Keeps the orchestrator's calibration records: (scales, seconds)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        if record.getMessage().startswith("int8 calibration scales"):
+            self.records.append(record.args)
 
 
 def bf16_vs_fp32(phase, family, onnx_path, labels, wav, relative: bool,
@@ -413,6 +645,67 @@ def bf16_vs_fp32(phase, family, onnx_path, labels, wav, relative: bool,
           "peak_device_memory_bytes": torch.cuda.max_memory_allocated()})
     check(np.isfinite(measured) and measured <= SCORE_DRIFT_BOUND,
           f"{phase}: bf16 score drift {measured}")
+    return chunk, scores["fp32"]
+
+
+def quantized_vs_fp32(phase, family, onnx_path, labels, chunk, fp32,
+                      relative: bool, precision: str, step_phase: str):
+    """The same 32-row chunk through the ``precision`` (int8 or mixed)
+    route, with the scales the main path cached; its drift against the fp32
+    scores, absolute or relative to the largest fp32 score, within
+    ``SCORE_DRIFT_BOUND``, and ``compare_scores``'s report. The route is
+    then timed and profiled on that chunk (``step_phase``)."""
+    import numpy as np
+    import torch
+
+    from birda_tpu_torch.inference.classifier import BirdClassifier
+    from birda_tpu_torch.models.contracts import contract_for
+    from birda_tpu_torch.models.zoo import onnx_model_int8
+    from birda_tpu_torch.onnx.int8_accuracy import compare_scores
+    from birda_tpu_torch.onnx.quantize import cached_calibration
+
+    contract = contract_for(family)
+    n = contract.num_classes
+    data = Path(onnx_path).read_bytes()
+    calib, from_cache = cached_calibration(data, contract.sample_count,
+                                           device="cuda")
+    check(from_cache, f"{phase}: no cached scales")
+    t0 = time.perf_counter()
+    model = onnx_model_int8(data, contract, labels, calib,
+                            compute_dtype=torch.bfloat16,
+                            storage_only=precision == "mixed")
+    load_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    clf = BirdClassifier(model, device="cuda", min_confidence=0.0, top_k=n)
+    rows = clf.chunk_runner(BATCH, contract.sample_count).predict_chunk(
+        chunk, BATCH)
+    got = np.zeros((BATCH, n), np.float64)
+    for r, res in enumerate(rows):
+        for p in res.predictions:
+            got[r, p.index] = p.confidence
+    drift = float(np.abs(got - fp32).max())
+    top = float(fp32.max())
+    measured = drift / top if relative else drift
+    rep = compare_scores(fp32, got)
+    emit({"phase": phase, "precision": model.precision_info, "rows": BATCH,
+          "classes": n, "load_s": load_s, "max_score_drift": drift,
+          "max_fp32_score": top,
+          "drift_over_max_score" if relative else "drift": measured,
+          "bound": SCORE_DRIFT_BOUND,
+          "compare_scores": {
+              "max_abs_delta": rep.max_abs_delta,
+              "mean_abs_delta": rep.mean_abs_delta,
+              "top1_agreement": rep.top1_agreement,
+              "top5_jaccard": rep.top5_jaccard,
+              "crossings": [[x.threshold, x.both, x.fp32_only, x.int8_only]
+                            for x in rep.crossings],
+              "worst_species": rep.worst_species[:3]},
+          "peak_device_memory_bytes": torch.cuda.max_memory_allocated()})
+    check(np.isfinite(measured) and measured <= SCORE_DRIFT_BOUND,
+          f"{phase}: {precision} score drift {measured}")
+    del clf
+    steady_step(step_phase, BirdClassifier(
+        model, device="cuda", min_confidence=0.0, top_k=5), chunk)
 
 
 def steady_step(phase, clf, chunk):
@@ -511,6 +804,10 @@ def main() -> int:
                              for f in fs
                              if f["spill_store_bytes"] or f["warnings"]]})
 
+    calib_log = CalibrationLog()
+    orchestrator_log = logging.getLogger("birda_tpu_torch.orchestrator")
+    orchestrator_log.setLevel(logging.INFO)
+    orchestrator_log.addHandler(calib_log)
     with tempfile.TemporaryDirectory(prefix="birda-smoke-") as tmp:
         tmp = Path(tmp)
         os.environ["XDG_CACHE_HOME"] = str(tmp / "cache")
@@ -534,10 +831,21 @@ def main() -> int:
         logmel = logmel_kernel_phase(w24, fb24, node.attr("hop"),
                                      node.attr("eps"), dev)
         del fn, graph, w24, fb24
-        launches24 = main_path("main_path", "fused_logmel", wavs24, onnx24,
-                               labels24_path, "birdnet-v24")
-        bf16_vs_fp32("bf16_vs_fp32", ModelFamily.BIRDNET_V24, onnx24,
-                     labels24, wavs24[0], relative=False, step_phase="step")
+        launches24, _ = main_path("main_path", "fused_logmel", wavs24,
+                                  onnx24, labels24_path, "birdnet-v24")
+        chunk24, fp32_24 = bf16_vs_fp32(
+            "bf16_vs_fp32", ModelFamily.BIRDNET_V24, onnx24, labels24,
+            wavs24[0], relative=False, step_phase="step")
+        quant24 = quantized_main_paths("", "fused_logmel", wavs24, onnx24,
+                                       labels24_path, "birdnet-v24",
+                                       calib_log, mixed=True)
+        for precision in ("int8", "mixed"):
+            quantized_vs_fp32(f"{precision}_vs_fp32", ModelFamily.BIRDNET_V24,
+                              onnx24, labels24, chunk24, fp32_24,
+                              relative=False, precision=precision,
+                              step_phase=f"step_{precision}")
+        convs24, mms24 = int8_graph_report(
+            "v24", onnx24, fullscale.BIRDNET_V24_SPEC.sample_count)
 
         # -- 3. Perch v2: conv1d_stft --------------------------------------
         conv = conv1d_kernel_phase(dev)
@@ -549,24 +857,41 @@ def main() -> int:
             p = tmp / f"perch_field_{rate}.wav"
             write_wav(p, recording(rate, 160.0, SEED + 10 + i), rate)
             wavs_perch.append(p)
-        launches_perch = main_path(
+        launches_perch, _ = main_path(
             "main_path_perch", "conv1d_stft", wavs_perch, onnx_perch,
             labels_perch_path, "perch-v2",
             min_confidence=PERCH_MIN_CONFIDENCE, top_k=PERCH_TOP_K)
-        bf16_vs_fp32("bf16_vs_fp32_perch", ModelFamily.PERCH_V2, onnx_perch,
-                     labels_perch, wavs_perch[0], relative=True,
-                     step_phase="step_perch")
+        chunk_perch, fp32_perch = bf16_vs_fp32(
+            "bf16_vs_fp32_perch", ModelFamily.PERCH_V2, onnx_perch,
+            labels_perch, wavs_perch[0], relative=True,
+            step_phase="step_perch")
+        quant_perch = quantized_main_paths(
+            "_perch", "conv1d_stft", wavs_perch, onnx_perch,
+            labels_perch_path, "perch-v2", calib_log, mixed=False,
+            min_confidence=PERCH_MIN_CONFIDENCE, top_k=PERCH_TOP_K)
+        quantized_vs_fp32("int8_vs_fp32_perch", ModelFamily.PERCH_V2,
+                          onnx_perch, labels_perch, chunk_perch, fp32_perch,
+                          relative=True, precision="int8",
+                          step_phase="step_int8_perch")
+        convs_perch, _ = int8_graph_report(
+            "perch", onnx_perch, fullscale.PERCH_V2_SPEC.sample_count)
+
+        # -- 4. the exact integer routes at the quantized nodes' shapes ----
+        int8_ops_phase(*int8_cases(convs24, mms24, convs_perch), dev)
 
     print(smi, flush=True)
     emit({"kernels": [
         kernel_entry("fused_logmel", "birda_tpu_torch/csrc/fused_logmel.cu",
                      "birda_tpu/ops/stft_conv.py:241",
                      launches24.get("fused_logmel", 0), logmel["v24_b32"],
-                     composed_ms=logmel["v24_b32"]["composed_ms"]),
+                     composed_ms=logmel["v24_b32"]["composed_ms"],
+                     launches_int8=quant24["int8"].get("fused_logmel", 0),
+                     launches_mixed=quant24["mixed"].get("fused_logmel", 0)),
         kernel_entry("conv1d_stft", "birda_tpu_torch/csrc/conv1d_stft.cu",
                      "birda_tpu/ops/stft_conv.py:121",
                      launches_perch.get("conv1d_stft", 0),
-                     conv["perch_b32"]),
+                     conv["perch_b32"],
+                     launches_int8=quant_perch["int8"].get("conv1d_stft", 0)),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,8 @@ exactly. The CUDA kernel itself is held against the plain version on a
 card only.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -85,9 +87,17 @@ def test_cpu_tensor_takes_plain_version_without_launch():
 
 
 def test_other_devices_raise():
-    x = torch.empty((1, 4096), device="meta")
+    """A meta tensor gets the output's shape alone (the int8 cost report
+    runs the graph on meta tensors); any device but the CPU, the card and
+    meta is refused."""
+    meta = torch.device("meta")
+    w = torch.empty((8, 512), device=meta)
+    out = stft_conv.conv1d_stft(torch.empty((3, 4096), device=meta), w, 160)
+    assert out.device == meta and out.dtype == torch.bfloat16
+    assert tuple(out.shape) == (3, 8, (4096 - 512) // 160 + 1)
+    other = types.SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(ValueError, match="unsupported device"):
-        stft_conv.conv1d_stft(x, torch.empty((8, 512)), 160)
+        stft_conv.conv1d_stft(other, w, 160)
 
 
 TILES = (128, 128, 64)  # csrc/conv1d_stft.cu: TILE_T, TILE_C, TILE_K

@@ -54,6 +54,13 @@ def test_no_import_of_the_jax_package_or_jax(rel):
     assert bad == [], f"{rel} imports {bad}"
 
 
+def test_import_scan_covers_the_int8_modules():
+    for rel in ("birda_tpu_torch/onnx/quantize.py",
+                "birda_tpu_torch/onnx/int8_accuracy.py",
+                "birda_tpu_torch/onnx/lowering.py"):
+        assert rel in PORT_SOURCES
+
+
 def test_import_scan_sees_imports_inside_functions(tmp_path):
     src = tmp_path / "m.py"
     src.write_text("def f():\n    from birda_tpu.errors import X\n"
@@ -98,6 +105,49 @@ def test_fusion_pass_leaves_the_same_nodes(spec):
 
     assert nodes(pm) == nodes(jm)
     assert sorted(pm.graph.initializers) == sorted(jm.graph.initializers)
+
+
+# -- the int8 path's host code ----------------------------------------------------
+
+def _source(module, name) -> str:
+    return inspect.getsource(getattr(module, name))
+
+
+@pytest.mark.parametrize("module,names", [
+    ("int8_accuracy", ["CrossingCounts", "Criteria", "Int8AccuracyReport",
+                       "compare_scores"]),
+    ("quantize", ["_structurally_eligible", "CalibrationResult",
+                  "calibration_signals", "_smoothing_vectors"]),
+])
+def test_int8_host_code_is_a_copy(module, names):
+    """The numpy parts of int8_accuracy and the host-only parts of quantize
+    are the JAX package's, byte for byte, constants included."""
+    import importlib
+
+    jax_mod = importlib.import_module(f"birda_tpu.onnx.{module}")
+    port_mod = importlib.import_module(f"birda_tpu_torch.onnx.{module}")
+    for name in names:
+        assert _source(port_mod, name) == _source(jax_mod, name), name
+    consts = [n for n in vars(jax_mod) if n.isupper()
+              and isinstance(getattr(jax_mod, n), (int, float, tuple))]
+    assert consts
+    for name in consts:
+        assert getattr(port_mod, name) == getattr(jax_mod, name), name
+
+
+def test_lower_int8_selection_walk_is_a_copy():
+    """lower_int8's selection and boundary-policy walk — everything from the
+    parsed graph on — is the JAX package's text."""
+    from birda_tpu.onnx import quantize as jq
+
+    from birda_tpu_torch.onnx import quantize as tq
+
+    def walk(mod):
+        src = _source(mod, "lower_int8")
+        return src[src.index("    graph = model.graph\n"):]
+
+    assert walk(tq) == walk(jq)
+    assert walk(tq).count("\n") > 200
 
 
 # -- writers --------------------------------------------------------------------

@@ -208,7 +208,7 @@ def test_runs_without_jax_flax_pyarrow_or_click(setup, home):
     """The port runs where neither jax, flax, pyarrow, click nor the JAX
     package itself can be imported: tiny v2.4 and tiny Perch v2 (scores
     below 1e-3 with random weights, so a floor of 1e-6 and the top 5), in
-    fp32 and bf16."""
+    fp32 and bf16, and tiny v2.4 in int8 and mixed (calibrated here)."""
     wavs, kw = setup
     perch = fs.build(fs.tiny_spec(fs.PERCH_V2_SPEC), seed=1)
     perch_model = home / "perch-v2-tiny.onnx"
@@ -229,6 +229,10 @@ runs = [analyze({[str(w) for w in wavs]!r}, model_path=m, labels_path=l,
                 model_type=t, min_confidence=c, top_k=k, device="cpu",
                 precision=p)
         for m, l, t, c, k in models for p in ("fp32", "bf16")]
+runs += [analyze({[str(w) for w in wavs]!r}, model_path=models[0][0],
+                 labels_path=models[0][1], model_type="birdnet-v24",
+                 min_confidence=0.1, device="cpu", precision=p)
+         for p in ("int8", "mixed")]
 loaded = sorted(m for m, v in sys.modules.items() if v is not None
                 and m.split(".")[0] in {blocked!r})
 print(json.dumps({{"exit": [r.exit_code for r in runs], "loaded": loaded,
@@ -239,9 +243,9 @@ print(json.dumps({{"exit": [r.exit_code for r in runs], "loaded": loaded,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     out = json.loads(r.stdout.strip().splitlines()[-1])
-    assert out["exit"] == [0, 0, 0, 0]
+    assert out["exit"] == [0] * 6
     assert out["loaded"] == []
-    assert len(out["detections"]) == 8 and all(out["detections"])
+    assert len(out["detections"]) == 12 and all(out["detections"])
 
 
 def test_chip_smoke_refuses_without_card_or_checkout(tmp_path):
@@ -257,7 +261,7 @@ def test_chip_smoke_refuses_without_card_or_checkout(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs,what", [
-    pytest.param({"precision": "int8"}, "--precision int8", id="int8"),
+    pytest.param({"bat": "bat-v1"}, "--bat", id="bat"),
     pytest.param({"jobs": 2}, "--jobs above 1", id="jobs"),
     pytest.param({"lat": 60.2, "lon": 24.9, "week": 20},
                  "geomodel range filter", id="range-filter"),

@@ -11,6 +11,7 @@ The CUDA kernel itself is held against the plain version on a card only.
 import os
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -91,11 +92,19 @@ def test_cpu_tensor_takes_plain_version_without_launch():
 
 
 def test_other_devices_raise():
-    x = torch.empty((1, 4096), device="meta")
-    w = torch.empty((2 * 257, 512))
-    fb = torch.empty((257, 16))
+    """A meta tensor gets the output's shape alone (the int8 cost report
+    runs the graph on meta tensors); any device but the CPU, the card and
+    meta is refused."""
+    meta = torch.device("meta")
+    w = torch.empty((2 * 257, 512), device=meta)
+    fb = torch.empty((257, 16), device=meta)
+    out = stft_conv.fused_logmel(torch.empty((3, 4096), device=meta), w, fb,
+                                 160, 1e-6)
+    assert out.device == meta and out.dtype == torch.bfloat16
+    assert tuple(out.shape) == (3, (4096 - 512) // 160 + 1, 16)
+    other = types.SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(ValueError, match="unsupported device"):
-        stft_conv.fused_logmel(x, w, fb, 160, 1e-6)
+        stft_conv.fused_logmel(other, w, fb, 160, 1e-6)
 
 
 def test_module_imports_without_nvcc():
