@@ -11,9 +11,10 @@
 The same keywords as the JAX package's ``analyze``, the same result types
 (:class:`AnalyzeResult`, which here also carries what the run reported, and
 :class:`FileResult`) and the same bounds checks, over the port's
-orchestrator. ``device`` is ``auto``/``cpu``/``cuda``/``gpu``: ``auto``
-(the default) and ``gpu`` run on the CUDA card and fail without one; only
-``cpu`` runs on the CPU.
+orchestrator; :func:`species` is the JAX package's ``species`` with its
+:class:`SpeciesEntry`. ``device`` is ``auto``/``cpu``/``cuda``/``gpu``:
+``auto`` (the default) and ``gpu`` run on the CUDA card and fail without
+one; only ``cpu`` runs on the CPU.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ from typing import Optional, Sequence
 from .output.reporter import ProgressReporter
 from .output.types import Detection
 
-__all__ = ["analyze", "AnalyzeResult", "FileResult", "Detection"]
+__all__ = ["analyze", "species", "AnalyzeResult", "FileResult",
+           "Detection", "SpeciesEntry"]
 
 
 @dataclass
@@ -54,10 +56,12 @@ class AnalyzeResult:
     exit_code: int
     #: The backend status (``requested``/``actual``/``fallback_reason``),
     #: the model's precision report (None for fp32; the int8/mixed
-    #: selection counts) and the run summary the pipeline reported.
+    #: selection counts), the geomodel coverage record of a range-filtered
+    #: run (None without one) and the run summary the pipeline reported.
     backend: Optional[dict] = None
     summary: Optional[dict] = None
     precision: Optional[dict] = None
+    range_filter: Optional[dict] = None
 
     @property
     def detections(self) -> list[Detection]:
@@ -127,18 +131,28 @@ class _RunCollector(_Collector):
         self.backend = None
         self.summary = None
         self.precision = None
+        self.range_filter = None
 
     def pipeline_started(self, total_files, model, min_confidence,
                          execution_provider, range_filter=None,
                          precision=None, sharding=None):
         self.backend = execution_provider
         self.precision = precision
+        self.range_filter = range_filter
 
     def pipeline_completed(self, summary):
         self.summary = summary
 
 
 _DEVICES = ("auto", "cpu", "cuda", "gpu")
+
+
+def _check_device(device: str) -> None:
+    from .errors import ConfigValidation
+
+    if device not in _DEVICES:
+        raise ConfigValidation(
+            f"device must be one of {', '.join(_DEVICES)} (got '{device}')")
 
 
 def analyze(
@@ -185,9 +199,7 @@ def analyze(
 
     if isinstance(inputs, (str, Path)):
         inputs = [inputs]
-    if device not in _DEVICES:
-        raise ConfigValidation(
-            f"device must be one of {', '.join(_DEVICES)} (got '{device}')")
+    _check_device(device)
     if precision not in ("fp32", "bf16", "mixed", "int8"):
         raise ConfigValidation(
             "precision must be fp32, bf16, mixed or int8 "
@@ -257,4 +269,66 @@ def analyze(
     return AnalyzeResult(files=files, exit_code=exit_code,
                          backend=collector.backend,
                          summary=collector.summary,
-                         precision=collector.precision)
+                         precision=collector.precision,
+                         range_filter=collector.range_filter)
+
+
+@dataclass
+class SpeciesEntry:
+    """One geomodel range-list entry."""
+
+    scientific_name: str
+    common_name: str
+    score: float
+
+    @property
+    def label(self) -> str:
+        if not self.common_name:
+            return self.scientific_name
+        return f"{self.scientific_name}_{self.common_name}"
+
+
+def species(
+    lat: float,
+    lon: float,
+    *,
+    week: Optional[int] = None,
+    month: Optional[int] = None,
+    day: Optional[int] = None,
+    threshold: Optional[float] = None,
+    sort: str = "freq",
+    model: Optional[str] = None,
+    geomodel_path: Optional[Path | str] = None,
+    geomodel_labels_path: Optional[Path | str] = None,
+    device: str = "auto",
+) -> list[SpeciesEntry]:
+    """Species expected at a location/time per the geomodel, the
+    programmatic face of the ``species`` command (entries in memory, no file
+    written). Provide ``week`` (48-week BirdNET calendar) or ``month`` +
+    ``day``. The geomodel runs on ``device``: ``auto`` (the card, failing
+    without one), ``cuda``/``gpu`` or ``cpu``."""
+    from .cli.species import compute_species_list, split_species_label
+    from .errors import ConfigValidation
+    from .inference.range_filter import query_device
+
+    _check_device(device)
+    if week is None and (month is None or day is None):
+        raise ConfigValidation("provide week, or month with day")
+    if (geomodel_path is None) != (geomodel_labels_path is None):
+        raise ConfigValidation(
+            "geomodel_path and geomodel_labels_path must be given together")
+    _validate_bounds(lat=lat, lon=lon, week=week, month=month, day=day,
+                     threshold=threshold)
+    with query_device(device):
+        result = compute_species_list(
+            lat=lat, lon=lon, week=week, month=month, day=day,
+            threshold=threshold, sort=sort, model_name=model,
+            geomodel_path=Path(geomodel_path) if geomodel_path else None,
+            geomodel_labels_path=(
+                Path(geomodel_labels_path) if geomodel_labels_path else None),
+        )
+    out = []
+    for label, score in result.entries:
+        sci, common = split_species_label(label)
+        out.append(SpeciesEntry(sci, common, float(score)))
+    return out

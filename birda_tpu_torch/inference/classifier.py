@@ -31,7 +31,8 @@ from ..constants import (
 )
 from ..errors import ClassifierBuild
 from ..errors import Inference as InferenceErr
-from .geomodel_filter import Prediction
+from .geomodel import GeomodelScores, MappingSummary
+from .geomodel_filter import FilterSettings, Prediction, filter_predictions
 
 from ..models.zoo import LoadedModel
 from .backend import BackendStatus, select_backend
@@ -51,6 +52,15 @@ class PredictionResult:
 
     predictions: list[Prediction]
     embeddings: Optional[np.ndarray] = None
+
+
+@dataclass
+class RangeFilterData:
+    """Projected geomodel scores + policy, computed once at startup."""
+
+    scores: GeomodelScores
+    settings: FilterSettings
+    summary: MappingSummary
 
 
 @dataclass
@@ -97,6 +107,7 @@ class BirdClassifier:
         device: str = "auto",
         min_confidence: float = DEFAULT_MIN_CONFIDENCE,
         top_k: int = DEFAULT_TOP_K,
+        range_filter_data: Optional[RangeFilterData] = None,
         species_list: Optional[set[str]] = None,
         want_embeddings: bool = False,
     ):
@@ -108,6 +119,7 @@ class BirdClassifier:
         self.labels = model.labels
         self.min_confidence = min_confidence
         self.top_k = min(top_k, model.num_classes)
+        self.range_filter_data = range_filter_data
         self.species_list = species_list
         self.want_embeddings = want_embeddings
         self._warmed = _WarmupRegistry()
@@ -135,6 +147,23 @@ class BirdClassifier:
     @property
     def sample_count(self) -> int:
         return self.model.config.sample_count
+
+    def range_filter_info(self) -> Optional[dict]:
+        """Geomodel coverage record for the JSON protocol."""
+        if self.range_filter_data is None:
+            return None
+        from ..constants import range_filter as rf_consts
+
+        d = self.range_filter_data
+        return {
+            "geomodel_version": rf_consts.GEOMODEL_VERSION,
+            "species_in_range": d.summary.in_range,
+            "total_species": d.summary.total,
+            "mapped_species": d.summary.mapped,
+            "unmatched_species": d.summary.unmatched,
+            "unmatched_policy": d.settings.unmatched.value,
+            "threshold": d.settings.threshold,
+        }
 
     # -- device step ----------------------------------------------------------
 
@@ -228,10 +257,14 @@ class BirdClassifier:
     def apply_range_filter(
         self, results: list[PredictionResult]
     ) -> list[PredictionResult]:
-        """Species-list retain when a list is set, else a no-op (the
-        geomodel range filter is not ported yet; the processor calls this
-        by the JAX classifier's name)."""
-        if self.species_list is not None:
+        """Range filter if configured, else species-list retain, else no-op."""
+        if self.range_filter_data is not None:
+            d = self.range_filter_data
+            for r in results:
+                r.predictions = filter_predictions(
+                    r.predictions, d.scores, d.settings
+                )
+        elif self.species_list is not None:
             for r in results:
                 r.predictions = [
                     p for p in r.predictions if p.species in self.species_list

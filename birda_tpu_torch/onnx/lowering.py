@@ -202,7 +202,10 @@ def int_conv_route(x_shape, w_shape, strides, pads, dilations, group,
     - ``float64`` off the card (float64 products, exact);
     - ``fp32`` for a grouped (depthwise) conv: cuDNN/PyTorch fp32 with TF32
       off, exact while the depth ``C_in/group · prod(kernel)`` is at most
-      EXACT_FP32_DEPTH, refused beyond;
+      EXACT_FP32_DEPTH;
+    - ``fp32_split`` for a deeper grouped conv: the reduction cut into
+      slices of at most EXACT_FP32_DEPTH, each an exact fp32 conv, summed
+      in int32 (:func:`_conv_fp32_split`);
     - ``int_mm`` for a 1x1 stride-1 unpadded dense conv, a ``[N·H·W, C_in]
       x [C_in, C_out]`` product (on the card 3.4x faster than the exact fp32
       route at the widest 1x1 of the shipped graphs);
@@ -215,11 +218,7 @@ def int_conv_route(x_shape, w_shape, strides, pads, dilations, group,
     kernel = list(w_shape[2:])
     depth = int(w_shape[1] * np.prod(kernel))
     if group > 1:
-        if depth > EXACT_FP32_DEPTH:
-            raise UnsupportedOnnxOp(
-                f"grouped int8 conv of reduction depth {depth}: no exact "
-                f"route beyond {EXACT_FP32_DEPTH}")
-        return "fp32"
+        return "fp32" if depth <= EXACT_FP32_DEPTH else "fp32_split"
     pointwise = (all(k == 1 for k in kernel) and all(s == 1 for s in strides)
                  and not any(p for pair in pads for p in pair))
     return "int_mm" if pointwise else "im2col"
@@ -231,7 +230,7 @@ def prepare_int_conv_weight(w: torch.Tensor, route: str) -> torch.Tensor:
     ``_int_mm`` routes, a float copy for the float routes."""
     if route in ("int_mm", "im2col"):
         return int_mm_weight(w.reshape(w.shape[0], -1).T)
-    return w.to(torch.float32 if route == "fp32" else torch.float64)
+    return w.to(torch.float64 if route == "float64" else torch.float32)
 
 
 def int_conv(x: torch.Tensor, w: torch.Tensor, strides, pads, dilations,
@@ -247,8 +246,14 @@ def int_conv(x: torch.Tensor, w: torch.Tensor, strides, pads, dilations,
                                dilations, group, x.device.type)
     if prepared is None:
         prepared = prepare_int_conv_weight(w, route)
+    if route == "fp32" and int(np.prod(w.shape[1:])) > EXACT_FP32_DEPTH:
+        raise UnsupportedOnnxOp(
+            f"one fp32 conv of reduction depth {int(np.prod(w.shape[1:]))} "
+            f"is no exact route beyond {EXACT_FP32_DEPTH}; take fp32_split")
     if route in ("fp32", "float64"):
         return _conv_float(x, prepared, strides, pads, dilations, group)
+    if route == "fp32_split":
+        return _conv_fp32_split(x, prepared, strides, pads, dilations, group)
     c_out = w.shape[0]
     n, c = x.shape[:2]
     if route == "int_mm":
@@ -289,6 +294,42 @@ def _conv_float(x, w, strides, pads, dilations, group) -> torch.Tensor:
     with _full_precision():
         out = conv(xf, w, None, strides, lo, dilations, group)
     return out.to(torch.int32)
+
+
+def _conv_fp32_split(x, w, strides, pads, dilations, group) -> torch.Tensor:
+    """A grouped int8 conv deeper than EXACT_FP32_DEPTH, exactly: each
+    group's input channels are cut into slices, and where the kernel alone
+    is deeper, its first spatial axis into row bands, so that each piece's
+    depth is at most EXACT_FP32_DEPTH. Each piece is an exact fp32 conv (a
+    row band reads the input shifted by ``row · dilation``), converted to
+    int32; the pieces are summed in int32. ``w`` is the float32 weight."""
+    kernel = list(w.shape[2:])
+    cg = w.shape[1]
+    rest = int(np.prod(kernel[1:]))
+    rows = min(kernel[0], EXACT_FP32_DEPTH // rest)
+    if rows == 0:
+        raise UnsupportedOnnxOp(
+            f"grouped int8 conv of kernel {kernel}: one row of it is deeper "
+            f"than {EXACT_FP32_DEPTH}, no exact route")
+    chans = min(cg, EXACT_FP32_DEPTH // (rows * rest))
+    xf = x.to(dtype=w.dtype, memory_format=torch.contiguous_format)
+    if any(p for pair in pads for p in pair):
+        xf = F.pad(xf, [v for pair in reversed(pads) for v in pair])
+    n, sp = xf.shape[0], xf.shape[2:]
+    out_rows = (sp[0] - (kernel[0] - 1) * dilations[0] - 1) // strides[0] + 1
+    xg = xf.reshape(n, group, cg, *sp)
+    conv = (F.conv1d, F.conv2d, F.conv3d)[len(kernel) - 1]
+    total = None
+    with _full_precision():
+        for c0 in range(0, cg, chans):
+            xs = xg[:, :, c0:c0 + chans].reshape(n, -1, *sp)
+            for r0 in range(0, kernel[0], rows):
+                part = conv(xs[:, :, r0 * dilations[0]:],
+                            w[:, c0:c0 + chans, r0:r0 + rows], None, strides,
+                            0, dilations, group)
+                part = part[:, :, :out_rows].to(torch.int32)
+                total = part if total is None else total.add_(part)
+    return total
 
 
 class _Evaluator:

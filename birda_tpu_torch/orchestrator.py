@@ -11,10 +11,13 @@ JAX package's modules (same subpackage and module names).
 All four precisions run: fp32, bf16, and the calibrated ``mixed`` and
 ``int8`` (:mod:`birda_tpu_torch.onnx.quantize`), whose non-quantized ops
 compute in bf16 on the card and, as the card's test double, on the CPU too.
+So do the secondary heads: the geomodel range filter (queried once on the
+run's device), the bat two-stage head (``--bat``) and regional slicing
+(``--region-labels``).
 
 Not yet ported, and refused with a typed error rather than run
-differently: ``synthetic:`` model paths, ``--bat``, ``--region-labels``,
-the geomodel range filter, ``--jobs`` above 1 and ``--devices`` above 1.
+differently: ``synthetic:`` model paths, ``--jobs`` above 1 and
+``--devices`` above 1.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import Optional
 import numpy as np
 
 from . import constants
+from .config import geomodel as geomodel_cfg
 from .config import range_filter as rf_cfg
 from .config.types import Config, InferenceDevice, ModelConfig, ModelType
 from .config.validate import get_model, validate_model_config
@@ -37,7 +41,9 @@ from .errors import (
     ConfigValidation,
     FileLocked,
 )
-from .inference.range_filter import read_geomodel_labels
+from .inference.geomodel import GeomodelScores, MappingSummary, SpeciesMapping
+from .inference.geomodel_filter import FilterSettings
+from .inference.range_filter import RangeFilter, read_geomodel_labels
 from .locking.file_lock import FileLock
 from .models import contracts
 from .output import json_envelope as env
@@ -51,7 +57,7 @@ from .pipeline.coordinator import (
     should_process,
 )
 
-from .inference.classifier import BirdClassifier
+from .inference.classifier import BirdClassifier, RangeFilterData
 from .models.zoo import LoadedModel, onnx_model
 from .pipeline.processor import process_file
 
@@ -389,9 +395,17 @@ def determine_default_batch_size(model_type: ModelType,
     return bs.OTHER_ACCEL
 
 
-def resolve_species_filter(options: AnalyzeOptions, config: Config
-                           ) -> Optional[set[str]]:
-    """A species list (flag or config) filters detections; none = all."""
+def resolve_species_filter(options: AnalyzeOptions, config: Config,
+                           has_range_filter: bool) -> Optional[set[str]]:
+    """Priority: range filter (dynamic) > species list (static) > none."""
+    if has_range_filter:
+        if options.slist is not None:
+            logger.warning(
+                "Ignoring --slist: range filtering takes precedence when "
+                "coordinates and a date are given. Drop --lat/--lon to use "
+                "the species list instead."
+            )
+        return None
     slist_path = options.slist or config.defaults.species_list_file
     if slist_path is None:
         return None
@@ -403,23 +417,109 @@ def resolve_species_filter(options: AnalyzeOptions, config: Config
     return species
 
 
-def _refuse_unported(options: AnalyzeOptions, config: Config,
-                     mc: ModelConfig) -> None:
-    if options.bat is not None:
-        raise _not_yet_ported("--bat (the bat two-stage head)")
-    if options.region_labels is not None:
-        raise _not_yet_ported("--region-labels")
+def build_range_filter_data(
+    request: rf_cfg.RangeFilterRequest,
+    installed: geomodel_cfg.InstalledRangeFilter,
+    classifier_labels: list[str],
+    device: str = "auto",
+) -> RangeFilterData:
+    """Query the geomodel ONCE, on ``device`` (the run's), and project its
+    scores into the classifier's label space."""
+    geomodel_labels = read_geomodel_labels(installed.labels_path)
+    rf = RangeFilter.from_onnx(
+        installed.model_path, geomodel_labels,
+        threshold=constants.range_filter.GEOMODEL_QUERY_THRESHOLD,
+        device=device,
+    )
+    location_scores = rf.predict_week(
+        request.latitude, request.longitude, request.week
+    )
+    mapping = SpeciesMapping.build(geomodel_labels, classifier_labels)
+    scores = GeomodelScores.project(location_scores, mapping)
+    settings = FilterSettings(
+        threshold=request.threshold,
+        unmatched=request.unmatched,
+        rerank=request.rerank,
+    )
+    return RangeFilterData(
+        scores=scores,
+        settings=settings,
+        summary=MappingSummary.new(mapping, scores, request.threshold),
+    )
+
+
+def _refuse_unported(options: AnalyzeOptions) -> None:
     if options.jobs > 1:
         raise _not_yet_ported("--jobs above 1")
     if options.devices is not None and options.devices > 1:
         raise _not_yet_ported("--devices above 1")
+
+
+def _bat_classifier(options: AnalyzeOptions, config: Config):
+    """The bat two-stage head of ``--bat``, on the run's device."""
+    from .config.bat import BatConfig, BatRegion
+    from .models.custom import CustomClassifier
+    from .registry.installer import models_dir
+
+    try:
+        region = BatRegion(options.bat)
+    except ValueError:
+        # Typed at this layer too: the library API (bat=...) reaches here
+        # without the CLI's choice check.
+        raise ConfigValidation(
+            f"unknown bat region '{options.bat}' (valid: "
+            f"{', '.join(r.value for r in BatRegion)})"
+        ) from None
+    bat_config = BatConfig.resolve(region, models_dir() / "bat")
+    return CustomClassifier.from_onnx(
+        bat_config.classifier_path, bat_config.labels_path,
+        min_confidence=(
+            options.min_confidence if options.min_confidence is not None
+            else config.defaults.min_confidence
+        ),
+        top_k=options.top_k,
+        device=resolve_device(options, config),
+    )
+
+
+def _range_filter_request(options: AnalyzeOptions, config: Config,
+                          mc: ModelConfig):
+    """The range-filter request and its resolved geomodel, or (None, None)
+    when no filter applies or, with a warning, when the geomodel is
+    unavailable."""
     rf_cfg.validate_threshold(options.range_threshold, config)
-    if rf_cfg.wants_range_filter(
-        config, mc.model_type, False,
+    bat_mode = options.bat is not None
+    if not rf_cfg.wants_range_filter(
+        config, mc.model_type, bat_mode,
         options.lat, options.lon, options.week, options.month, options.day,
     ):
-        raise _not_yet_ported("the geomodel range filter (--lat/--lon with "
-                              "a date)")
+        return None, None
+    from .inference.geomodel_filter import UnmatchedPolicy
+    from .registry.loader import load_registry
+
+    request = rf_cfg.build_range_filter_request(
+        config, mc.model_type, bat_mode,
+        options.lat, options.lon, options.week, options.month, options.day,
+        options.range_threshold,
+        UnmatchedPolicy(options.range_unmatched)
+        if options.range_unmatched else None,
+        options.rerank,
+    )
+    cfg_for_geo = geomodel_cfg.config_with_override(
+        config, options.geomodel_path, options.geomodel_labels_path
+    )
+    installed = geomodel_cfg.resolve_geomodel(
+        cfg_for_geo, load_registry(),
+        allow_download=options.allow_download,
+        interactive=options.interactive,
+    )
+    if isinstance(installed, geomodel_cfg.GeomodelUnavailable):
+        # Coordinates in config enable range filtering implicitly, so an
+        # error here would break existing pipelines: degrade with the
+        # resolver's reason.
+        logger.warning("Range filtering disabled: %s", installed.reason)
+        return None, None
+    return request, installed
 
 
 # ---------------------------------------------------------------------------
@@ -433,7 +533,9 @@ def analyze_files(options: AnalyzeOptions, config: Config,
         raise ConfigValidation("--stdout requires exactly one input file")
 
     mc, model_name = resolve_model_config(options, config)
-    _refuse_unported(options, config, mc)
+    _refuse_unported(options)
+    custom_classifier = (_bat_classifier(options, config)
+                         if options.bat is not None else None)
 
     files = collect_input_files(options.inputs)
     if not files:
@@ -441,18 +543,39 @@ def analyze_files(options: AnalyzeOptions, config: Config,
 
         raise NoValidAudioFiles()
 
+    # Validated before resolution, resolved before the classifier, degraded
+    # to unfiltered when the geomodel is unavailable.
+    range_request, installed_geomodel = _range_filter_request(
+        options, config, mc)
+
     device = resolve_device(options, config)
     model = load_model_graph(mc, model_name, precision=options.precision,
                              device=device,
                              calibration_audio=options.calibration_audio)
-    species_list = resolve_species_filter(options, config)
+    if options.region_labels is not None:
+        # Regional view of the full graph (gather for sigmoid heads,
+        # gather+renormalize for softmax) without a region-sliced asset.
+        from .models.regional import slice_to_region
+
+        region_labels = read_geomodel_labels(options.region_labels)
+        model = slice_to_region(model, region_labels,
+                                region=options.region_labels.stem)
+    species_list = resolve_species_filter(
+        options, config, has_range_filter=range_request is not None)
     min_confidence = (
         options.min_confidence if options.min_confidence is not None
         else config.defaults.min_confidence
     )
 
+    range_filter_data = None
+    if range_request is not None:
+        range_filter_data = build_range_filter_data(
+            range_request, installed_geomodel, model.labels, device=device)
+
     # BSG post-processing: calibration always, SDM when (lat, lon, day)
-    # resolve; the day comes from the flag/config or per-file mtime.
+    # resolve. Coordinates follow the range filter's when one is active,
+    # else the bare --lat/--lon; the day comes from the flag/config or
+    # per-file mtime.
     bsg_processor = None
     bsg_params = None
     if mc.bsg_calibration is not None:
@@ -462,7 +585,10 @@ def analyze_files(options: AnalyzeOptions, config: Config,
             mc.bsg_calibration, mc.bsg_migration, mc.bsg_distribution_maps)
         doy = (options.day_of_year if options.day_of_year is not None
                else config.defaults.day_of_year)
-        if options.lat is not None and options.lon is not None:
+        if range_request is not None:
+            bsg_params = (range_request.latitude, range_request.longitude,
+                          doy)
+        elif options.lat is not None and options.lon is not None:
             bsg_params = (options.lat, options.lon, doy)
 
     classifier = BirdClassifier(
@@ -470,7 +596,9 @@ def analyze_files(options: AnalyzeOptions, config: Config,
         device=device,
         min_confidence=min_confidence,
         top_k=options.top_k,
+        range_filter_data=range_filter_data,
         species_list=species_list,
+        want_embeddings=custom_classifier is not None,
     )
 
     batch_size = (
@@ -488,27 +616,33 @@ def analyze_files(options: AnalyzeOptions, config: Config,
         reporter.pipeline_started(
             len(files), model_name, min_confidence,
             classifier.backend_status.to_json_dict(),
-            None,  # no range filter
+            classifier.range_filter_info(),
             precision=model.precision_info,
             sharding=None,
         )
 
     # Warm the steady-state runner up front so the first real file does not
-    # absorb the kernel build and autotuning.
-    step_model = max(1, classifier.sample_count
-                     - int(round(overlap * classifier.sample_rate)))
-    try:
-        report = classifier.chunk_runner(batch_size, step_model).ensure_warm()
-    except BirdaError:
-        raise
-    except Exception as e:  # noqa: BLE001 — a graph the card rejects
-        raise ClassifierBuild(str(e)) from e
-    if report is not None:
-        logger.info("warmup batch %d in %.2fs", batch_size, report.seconds)
+    # absorb the kernel build and autotuning. Bat mode skips this: its
+    # window contract (constants.bat) differs from the bird geometry, so the
+    # bird-shaped runner would never be used.
+    if options.bat is None:
+        step_model = max(1, classifier.sample_count
+                         - int(round(overlap * classifier.sample_rate)))
+        try:
+            report = classifier.chunk_runner(batch_size,
+                                             step_model).ensure_warm()
+        except BirdaError:
+            raise
+        except Exception as e:  # noqa: BLE001 — a graph the card rejects
+            raise ClassifierBuild(str(e)) from e
+        if report is not None:
+            logger.info("warmup batch %d in %.2fs", batch_size,
+                        report.seconds)
 
     stats = process_all_files(
         classifier, files, options, config, batch_size, overlap, formats,
-        model_name, min_confidence, reporter, bsg_processor, bsg_params,
+        model_name, min_confidence, custom_classifier, reporter,
+        range_request, bsg_processor, bsg_params,
     )
     if options.combine and not options.stdout_mode:
         _combine_outputs(files, options, formats)
@@ -518,10 +652,10 @@ def analyze_files(options: AnalyzeOptions, config: Config,
     return 0
 
 
-def _emit_file_started(reporter, classifier, input_path, index,
-                       overlap) -> None:
+def _emit_file_started(reporter, classifier, input_path, index, overlap,
+                       bat_mode: bool) -> None:
     """The protocol's file_started event with a duration-based segment
-    estimate."""
+    estimate; bat mode uses its own window contract (constants.bat)."""
     if reporter is None:
         return
     est_segments = 0
@@ -530,8 +664,12 @@ def _emit_file_started(reporter, classifier, input_path, index,
         from .audio.decode import get_audio_duration
 
         duration = get_audio_duration(input_path)
-        seg = classifier.segment_duration
-        step = max(seg - overlap, 1e-9)
+        if bat_mode:
+            seg = constants.bat.SEGMENT_DURATION
+            step = max(seg - constants.bat.OVERLAP, 1e-9)
+        else:
+            seg = classifier.segment_duration
+            step = max(seg - overlap, 1e-9)
         import math
 
         est_segments = (
@@ -545,10 +683,14 @@ def _emit_file_started(reporter, classifier, input_path, index,
 
 def process_all_files(
     classifier, files, options, config, batch_size, overlap, formats,
-    model_name, min_confidence, reporter,
-    bsg_processor=None, bsg_params=None,
+    model_name, min_confidence, custom_classifier, reporter,
+    range_request=None, bsg_processor=None, bsg_params=None,
 ) -> RunStats:
     stats = RunStats()
+    range_filter_params = None
+    if range_request is not None:
+        range_filter_params = (range_request.latitude,
+                               range_request.longitude, range_request.week)
     streamed = (options.stdout_mode or options.dual_output_mode
                 or options.stream_detections)
     for index, input_path in enumerate(files):
@@ -591,14 +733,18 @@ def process_all_files(
             csv_columns=list(config.defaults.csv_columns.include),
             csv_bom_enabled=not options.no_csv_bom,
             model_name=model_name,
+            range_filter_params=range_filter_params,
             reporter=reporter if streamed else None,
             progress_reporter=reporter,
             dual_output_mode=options.dual_output_mode,
+            custom_classifier=custom_classifier,
+            bat_mode=options.bat is not None,
             decode_workers=resolve_decode_workers(options),
             bsg_processor=bsg_processor,
             bsg_params=bsg_params,
         )
-        _emit_file_started(reporter, classifier, input_path, index, overlap)
+        _emit_file_started(reporter, classifier, input_path, index, overlap,
+                           options.bat is not None)
         start = time.monotonic()
         try:
             result = process_file(classifier, pcfg)

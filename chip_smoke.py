@@ -20,6 +20,14 @@ from a seed:
 - Perch v2 over two generated 160 s recordings (32 kHz; 48 kHz, which runs
   the device resampler), through ``conv1d_stft``, in bf16 and int8 (twice).
 
+Then the secondary heads, each through ``analyze`` on the card in bf16:
+the bat two-stage head (``bat="uk"``, a Gemm + Sigmoid head [B,1024] -> 38
+over v2.4's embeddings, one 60 s recording at 256 kHz), the geomodel range
+filter on v2.4 (the fixture geomodel at the real 12,012 species), regional
+slicing on Perch v2 (softmax, renormalized) and on v2.4 (sigmoid), and
+``api.species`` on the fixture geomodel, each held against a float64
+evaluation on the host.
+
 Each main path runs with the launch counts set to 0 just before it and read
 just after, and must have launched its kernel. Each model's bf16, int8 and
 (v2.4) mixed routes are compared with its fp32 route on one chunk, and each
@@ -27,7 +35,8 @@ is timed and profiled on that chunk. The ``int8_ops`` phase holds the exact
 integer routes of the int8 convs and matmuls (``torch._int_mm`` and the exact
 fp32 depthwise route) bit for bit against CPU float64 products at the
 shapes of the two graphs' quantized nodes at batch 32, and times them beside
-the bf16 call of the same shape. Each phase prints one JSON line; then come
+the bf16 call of the same shape, and a grouped conv of depth 1089 on the
+split fp32 route. Each phase prints one JSON line; then come
 the card's name and power limit, the kernel summary line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
 then non-zero and no result line is printed, as it is without a CUDA device
@@ -67,6 +76,21 @@ PROFILE_STEPS = 3
 #: score.
 PERCH_MIN_CONFIDENCE = 1e-6
 PERCH_TOP_K = 5
+#: Secondary heads: the bat head's classes (the widest regional head), the
+#: geomodel's species (the BirdNET Geomodel v3.0.2 contract), the bound on
+#: a head's card scores against float64 on the host, the bound on the
+#: geomodel's scores, and the bound on renormalized regional Perch scores
+#: relative to the largest.
+BAT_CLASSES = 38
+GEO_SPECIES = 12_012
+HEAD_BOUND = 1e-5
+GEO_BOUND = 1e-6
+REGION_REL_BOUND = 1e-5
+#: (lat, lon, week) of the range-filter and species queries: the fixture
+#: geomodel's weights are N(0, 0.8) per unit of input, so near the origin
+#: and early in the year its scores spread over (0, 1) instead of
+#: saturating.
+GEO_QUERY = (0.5, -1.2, 2)
 #: One NVIDIA H100 SXM, from its published specification: HBM bytes per
 #: second and dense bf16 tensor-core operations per second.
 HBM_BYTES_PER_S = 3.35e12
@@ -483,11 +507,12 @@ def write_graph(spec, tmp: Path):
 
 
 def main_path(phase, kernel, wavs, onnx_path, labels_path, model_type,
-              precision="bf16", **kw):
-    """``analyze`` at ``precision`` and batch 32 on the card, with the
-    launch counts set to 0 just before and read just after; checks the run
-    went through ``kernel`` and produced finite confidences in [0, 1] for
-    every file. Returns the launch counts and the result."""
+              precision="bf16", device="gpu", **kw):
+    """``analyze`` at ``precision`` and batch 32 on the card (``device``
+    ``gpu`` or ``auto``), with the launch counts set to 0 just before and
+    read just after; checks the run went through ``kernel`` and produced
+    finite confidences in [0, 1] for every file. Returns the launch counts
+    and the result."""
     import numpy as np
     import torch
 
@@ -498,7 +523,7 @@ def main_path(phase, kernel, wavs, onnx_path, labels_path, model_type,
     stft_conv.LAUNCHES.clear()
     t0 = time.perf_counter()
     result = analyze(wavs, model_path=onnx_path, labels_path=labels_path,
-                     model_type=model_type, device="gpu",
+                     model_type=model_type, device=device,
                      precision=precision, batch_size=BATCH, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -510,6 +535,7 @@ def main_path(phase, kernel, wavs, onnx_path, labels_path, model_type,
            "files": [{"file": f.path.name, "detections": len(f.detections),
                       "error": f.error} for f in result.files],
            "segments": summary.get("total_segments"),
+           "detections": len(result.detections),
            "pipeline_ms": summary.get("duration_ms"),
            "wall_s_with_load": wall,
            "peak_device_memory_bytes": torch.cuda.max_memory_allocated()}
@@ -755,6 +781,267 @@ def steady_step(phase, clf, chunk):
               for name, us in by_name.most_common(8)]})
 
 
+def read_wav(path: Path):
+    import numpy as np
+
+    with wave.open(str(path)) as w:
+        pcm = np.frombuffer(w.readframes(w.getnframes()), "<i2")
+    return pcm.astype(np.float32) / 32767.0
+
+
+def bat_phase(tmp: Path, onnx24, labels24_path, labels24):
+    """``analyze(bat="uk", device="auto")`` on full-scale v2.4 in bf16 over
+    one 60 s recording at 256 kHz, with a Gemm + Sigmoid head [B,1024] ->
+    38 (weights from ``SEED``) under ``models_dir()/bat``: every detection
+    is a head label and the windows step by 0.5625 · 0.75 s. Then one
+    32-window chunk through the classifier with embeddings: the head's
+    card scores over the returned embeddings against a float64 head on the
+    host, within ``HEAD_BOUND``. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from birda_tpu_torch import constants
+    from birda_tpu_torch.inference.classifier import BirdClassifier
+    from birda_tpu_torch.models.contracts import ModelFamily, contract_for
+    from birda_tpu_torch.models.custom import CustomClassifier
+    from birda_tpu_torch.models.zoo import onnx_model
+    from birda_tpu_torch.onnx.encode import model, node, tensor, value_info
+    from birda_tpu_torch.registry.installer import models_dir
+
+    rng = np.random.default_rng(SEED)
+    w = rng.normal(0, 0.05, (1024, BAT_CLASSES)).astype(np.float32)
+    b = rng.normal(0, 0.5, BAT_CLASSES).astype(np.float32)
+    head_labels = [f"Batus sp{i:02d}_Bat {i:02d}" for i in range(BAT_CLASSES)]
+    bat_dir = models_dir() / "bat"
+    bat_dir.mkdir(parents=True, exist_ok=True)
+    head_path = bat_dir / "BattyBirdNET-UK-256kHz_fp32.onnx"
+    head_path.write_bytes(model(
+        [node("Gemm", ["input", "W", "B"], ["logits"]),
+         node("Sigmoid", ["logits"], ["probabilities"])],
+        inputs=[value_info("input", ["batch", 1024])],
+        outputs=[value_info("probabilities", ["batch", BAT_CLASSES])],
+        initializers=[tensor("W", w), tensor("B", b)]))
+    head_labels_path = bat_dir / "BattyBirdNET-UK-256kHz_Labels.txt"
+    head_labels_path.write_text("".join(f"{x}\n" for x in head_labels))
+
+    rate = constants.bat.SAMPLE_RATE
+    wav = tmp / "bats_256k.wav"
+    write_wav(wav, recording(rate, 60.0, SEED + 20), rate)
+    launches, result = main_path("main_path_bat", "fused_logmel", [wav],
+                                 onnx24, labels24_path, "birdnet-v24",
+                                 device="auto", bat="uk")
+    check(all(f"{d.scientific_name}_{d.common_name}" in head_labels
+              for d in result.detections),
+          "main_path_bat: a detection that is not a head label")
+    step = constants.bat.SEGMENT_DURATION - constants.bat.OVERLAP
+    starts = sorted({d.start_time for d in result.detections})
+    on_grid = [abs(t / step - round(t / step)) < 1e-9 for t in starts[:-1]]
+    check(len(starts) > 2 and starts[0] == 0.0 and all(on_grid),
+          f"main_path_bat: window starts {starts[:4]} off the "
+          f"{step} s grid")
+
+    seg = constants.bat.CHUNK_SAMPLES
+    hop = seg - int(round(constants.bat.OVERLAP * rate))
+    chunk = read_wav(wav)[:(BATCH - 1) * hop + seg]
+    contract = contract_for(ModelFamily.BIRDNET_V24)
+    clf = BirdClassifier(onnx_model(onnx24, contract, labels24,
+                                    dtype=torch.bfloat16),
+                         device="auto", min_confidence=0.0, top_k=5,
+                         want_embeddings=True)
+    rows = clf.chunk_runner(BATCH, hop).predict_chunk(chunk, BATCH)
+    emb = np.stack([r.embeddings for r in rows])
+    head = CustomClassifier.from_onnx(head_path, head_labels_path,
+                                      device="auto")
+    got = head.scores(emb).cpu().numpy()
+    want = 1 / (1 + np.exp(-(emb.astype(np.float64) @ w.astype(np.float64)
+                             + b)))
+    err = float(np.abs(got - want).max())
+    emit({"phase": "bat_head_chunk", "windows": BATCH,
+          "embeddings": list(emb.shape), "head_device": str(head.device),
+          "max_abs_err": err, "bound": HEAD_BOUND,
+          "window_step_s": step, "distinct_starts": len(starts)})
+    check(emb.shape == (BATCH, 1024) and bool(np.isfinite(emb).all()),
+          f"bat_head_chunk: embeddings {emb.shape}")
+    check(err <= HEAD_BOUND, f"bat_head_chunk: head error {err}")
+    return launches
+
+
+def fixture_geomodel(tmp: Path, labels24):
+    """The fixture geomodel at the real 12,012 species (weights from
+    ``SEED``): the classifier's first 6,000 labels and 6,012 others.
+    Returns (graph path, labels path, labels, W, B)."""
+    from birda_tpu_torch.onnx.encode import make_fixture_geomodel
+    from birda_tpu_torch.onnx.proto import load_model
+
+    data = make_fixture_geomodel(num_species=GEO_SPECIES, seed=SEED)
+    geo = tmp / "geomodel.onnx"
+    geo.write_bytes(data)
+    labels = labels24[:6000] + [f"Geo only{i:05d}_Geo bird {i:05d}"
+                                for i in range(GEO_SPECIES - 6000)]
+    labels_path = tmp / "geomodel-labels.txt"
+    labels_path.write_text("".join(f"{x}\n" for x in labels))
+    inits = load_model(data).graph.initializers
+    return geo, labels_path, labels, inits["W"].array, inits["B"].array
+
+
+def geomodel_scores(w, b):
+    """The fixture geomodel at ``GEO_QUERY`` in float64 on the host."""
+    import numpy as np
+
+    x = np.asarray(GEO_QUERY, np.float64)
+    return 1 / (1 + np.exp(-(x @ w.astype(np.float64) + b)))
+
+
+def range_phase(tmp: Path, onnx24, labels24_path, labels24, geo):
+    """``analyze`` on full-scale v2.4 in bf16 with lat/lon/week,
+    ``range_threshold=0.03`` and ``range_unmatched="drop"`` over one 60 s
+    recording at 48 kHz: every detection is a species that a float64 Gemm +
+    sigmoid of the fixture's weights puts in range. Returns the launch
+    counts."""
+    from birda_tpu_torch.config.types import Config
+
+    geo_path, geo_labels_path, geo_labels, w, b = geo
+    cfg = Config()
+    cfg.defaults.geomodel = geo_path
+    cfg.defaults.geomodel_labels = geo_labels_path
+    wav = tmp / "range_48k.wav"
+    write_wav(wav, recording(48_000, 60.0, SEED + 30), 48_000)
+    lat, lon, week = GEO_QUERY
+    launches, result = main_path(
+        "main_path_range", "fused_logmel", [wav], onnx24, labels24_path,
+        "birdnet-v24", lat=lat, lon=lon, week=week, range_threshold=0.03,
+        range_unmatched="drop", config=cfg)
+    scores = geomodel_scores(w, b)
+    index = {label: i for i, label in enumerate(geo_labels)}
+    where = [index.get(f"{d.scientific_name}_{d.common_name}")
+             for d in result.detections]
+    check(all(i is not None and scores[i] >= 0.03 - GEO_BOUND
+              for i in where),
+          "main_path_range: a detection out of range or unmatched")
+    info = result.range_filter or {}
+    mapped = scores[:6000]
+    emit({"phase": "range_filter_info", **info,
+          "species_in_range_host": int((mapped >= 0.03).sum()),
+          "near_threshold_host": int((abs(mapped - 0.03) <= GEO_BOUND).sum()),
+          "detected_species": len({i for i in where})})
+    check(info.get("total_species") == len(labels24)
+          and info.get("mapped_species") == 6000
+          and info.get("unmatched_policy") == "drop",
+          f"range_filter_info: {info}")
+    check(abs(info["species_in_range"] - int((mapped >= 0.03).sum()))
+          <= int((abs(mapped - 0.03) <= GEO_BOUND).sum()),
+          "range_filter_info: species in range differ from the host's")
+    return launches
+
+
+def region_phase(phase, kernel, tmp: Path, family, onnx_path, labels_path,
+                 labels, rate, softmax, dev, **kw):
+    """``analyze`` with a regional label file that keeps every 8th label,
+    over one 60 s recording at the model's rate; every detection is a
+    regional label and, as in the JAX package, no precision is reported.
+    Then one 32-window chunk through the regional view in bf16: its scores
+    against the same forward pass's full scores gathered (sigmoid: bit for
+    bit) or gathered and renormalized in float64 on the host (softmax:
+    within ``REGION_REL_BOUND`` of the largest). Returns the launch
+    counts."""
+    import numpy as np
+    import torch
+
+    from birda_tpu_torch.models.contracts import contract_for
+    from birda_tpu_torch.models.regional import slice_to_region
+    from birda_tpu_torch.models.zoo import onnx_model
+
+    region = labels[::8]
+    region_path = tmp / f"{family}-every-8th.txt"
+    region_path.write_text("".join(f"{x}\n" for x in region))
+    wav = tmp / f"{family}-region.wav"
+    write_wav(wav, recording(rate, 60.0, SEED + 40), rate)
+    launches, result = main_path(phase, kernel, [wav], onnx_path,
+                                 labels_path, family, precision="bf16",
+                                 region_labels=region_path, **kw)
+    kept = set(region)
+    check(all(f"{d.scientific_name}_{d.common_name}" in kept
+              for d in result.detections),
+          f"{phase}: a detection outside the region")
+    check(result.precision is None, f"{phase}: precision {result.precision}")
+
+    contract = contract_for(family)
+    seg = contract.sample_count
+    pcm = torch.from_numpy(read_wav(wav))
+    x = pcm.unfold(0, seg, (len(pcm) - seg) // (BATCH - 1))[:BATCH]
+    model = onnx_model(onnx_path, contract, labels, dtype=torch.bfloat16)
+    model.bind_device(dev)
+    full = {}
+    base = model.apply
+    model.apply = lambda wave: full.setdefault("out", base(wave))
+    view = slice_to_region(model, region, region="every-8th")
+    with torch.inference_mode():
+        out = view.apply(x.to(dev))
+        got = out["scores"].cpu().numpy()
+        scores = full["out"]["scores"].cpu().numpy()
+        emb_same = bool(torch.equal(out["embeddings"],
+                                    full["out"]["embeddings"]))
+    gathered = scores[:, ::8]
+    rec = {"phase": f"{phase}_chunk", "rows": BATCH,
+           "classes": len(region), "of": len(labels), "softmax": softmax,
+           "embeddings_pass_through": emb_same}
+    if softmax:
+        want = gathered.astype(np.float64)
+        want = want / want.sum(-1, keepdims=True)
+        rec["max_err_over_top"] = float(np.abs(got - want).max()
+                                        / want.max())
+        rec["bound"] = REGION_REL_BOUND
+        rec["row_sums"] = [float(got.sum(-1).min()), float(got.sum(-1).max())]
+        ok = rec["max_err_over_top"] <= REGION_REL_BOUND
+    else:
+        rec["bit_exact"] = ok = bool(np.array_equal(got, gathered))
+    emit(rec)
+    check(ok and emb_same and got.shape == (BATCH, len(region)),
+          f"{phase}_chunk: {rec}")
+    return launches
+
+
+def species_phase(geo):
+    """``api.species`` on the card (``device="auto"``) against a float64
+    evaluation of the fixture geomodel on the host: the same species, each
+    score within ``GEO_BOUND``, sorted as the command sorts (score
+    descending, then name) and in the host's order wherever the host's
+    neighbouring scores differ by more than twice the bound."""
+    import numpy as np
+
+    from birda_tpu_torch.api import species
+
+    geo_path, geo_labels_path, geo_labels, w, b = geo
+    lat, lon, week = GEO_QUERY
+    t0 = time.perf_counter()
+    got = species(lat, lon, week=week, threshold=0.03,
+                  geomodel_path=geo_path,
+                  geomodel_labels_path=geo_labels_path, device="auto")
+    seconds = time.perf_counter() - t0
+    scores = geomodel_scores(w, b)
+    host = sorted(((lab, float(s)) for lab, s in zip(geo_labels, scores)
+                   if s >= 0.03), key=lambda e: (-e[1], e[0].lower()))
+    near = {lab for lab, s in zip(geo_labels, scores)
+            if abs(s - 0.03) <= GEO_BOUND}
+    card = [(e.label, e.score) for e in got]
+    host_score = dict(zip(geo_labels, scores))
+    same_set = ({lab for lab, _ in card} - near) == \
+        ({lab for lab, _ in host} - near)
+    err = max(abs(s - host_score[lab]) for lab, s in card)
+    sorted_ok = card == sorted(card, key=lambda e: (-e[1], e[0].lower()))
+    firm = [i for i in range(min(len(card), len(host)))
+            if all(abs(host[i][1] - host[j][1]) > 2 * GEO_BOUND
+                   for j in (i - 1, i + 1) if 0 <= j < len(host))]
+    order_ok = all(card[i][0] == host[i][0] for i in firm)
+    emit({"phase": "species", "entries": len(card),
+          "host_entries": len(host), "max_abs_err": err, "bound": GEO_BOUND,
+          "same_species": same_set, "sorted": sorted_ok,
+          "positions_held_to_host_order": len(firm),
+          "in_host_order": order_ok, "seconds": seconds})
+    check(card and same_set and sorted_ok and order_ok and err <= GEO_BOUND,
+          "species: the card's list differs from the host's")
+
+
 def kernel_entry(name, source, replaces, launches, case, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -812,6 +1099,7 @@ def main() -> int:
         tmp = Path(tmp)
         os.environ["XDG_CACHE_HOME"] = str(tmp / "cache")
         os.environ["XDG_CONFIG_HOME"] = str(tmp / "config")
+        os.environ["XDG_DATA_HOME"] = str(tmp / "data")
 
         # -- 2. BirdNET v2.4: fused_logmel ---------------------------------
         graph, onnx24, labels24_path, labels24 = write_graph(
@@ -876,8 +1164,28 @@ def main() -> int:
         convs_perch, _ = int8_graph_report(
             "perch", onnx_perch, fullscale.PERCH_V2_SPEC.sample_count)
 
-        # -- 4. the exact integer routes at the quantized nodes' shapes ----
-        int8_ops_phase(*int8_cases(convs24, mms24, convs_perch), dev)
+        # -- 4. the secondary heads --------------------------------------
+        launches_bat = bat_phase(tmp, onnx24, labels24_path, labels24)
+        geo = fixture_geomodel(tmp, labels24)
+        launches_range = range_phase(tmp, onnx24, labels24_path, labels24,
+                                     geo)
+        species_phase(geo)
+        launches_region_perch = region_phase(
+            "main_path_region_perch", "conv1d_stft", tmp, "perch-v2",
+            onnx_perch, labels_perch_path, labels_perch, 32_000,
+            softmax=True, dev=dev, min_confidence=PERCH_MIN_CONFIDENCE,
+            top_k=PERCH_TOP_K)
+        launches_region24 = region_phase(
+            "main_path_region_v24", "fused_logmel", tmp, "birdnet-v24",
+            onnx24, labels24_path, labels24, 48_000, softmax=False, dev=dev)
+
+        # -- 5. the exact integer routes at the quantized nodes' shapes ----
+        cases, gemms = int8_cases(convs24, mms24, convs_perch)
+        # A grouped conv deeper than the exact fp32 depth (33 · 33 = 1089):
+        # the split fp32 route.
+        cases["grouped_depth_1089"] = ((BATCH, 132, 64, 16), (4, 33, 33, 1),
+                                       (1, 1), ((16, 16), (0, 0)), (1, 1), 4)
+        int8_ops_phase(cases, gemms, dev)
 
     print(smi, flush=True)
     emit({"kernels": [
@@ -886,12 +1194,20 @@ def main() -> int:
                      launches24.get("fused_logmel", 0), logmel["v24_b32"],
                      composed_ms=logmel["v24_b32"]["composed_ms"],
                      launches_int8=quant24["int8"].get("fused_logmel", 0),
-                     launches_mixed=quant24["mixed"].get("fused_logmel", 0)),
+                     launches_mixed=quant24["mixed"].get("fused_logmel", 0),
+                     launches_bat=launches_bat.get("fused_logmel", 0),
+                     launches_range=launches_range.get("fused_logmel", 0),
+                     launches_region=launches_region24.get("fused_logmel",
+                                                           0)),
         kernel_entry("conv1d_stft", "birda_tpu_torch/csrc/conv1d_stft.cu",
                      "birda_tpu/ops/stft_conv.py:121",
                      launches_perch.get("conv1d_stft", 0),
                      conv["perch_b32"],
-                     launches_int8=quant_perch["int8"].get("conv1d_stft", 0)),
+                     launches_int8=quant_perch["int8"].get("conv1d_stft", 0),
+                     launches_bat=launches_bat.get("conv1d_stft", 0),
+                     launches_range=launches_range.get("conv1d_stft", 0),
+                     launches_region=launches_region_perch.get("conv1d_stft",
+                                                               0)),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

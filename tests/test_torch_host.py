@@ -348,3 +348,99 @@ def test_port_modules_are_not_the_jax_modules():
     assert len(mods) > 40
     for m in mods:
         assert Path(m.__file__).is_relative_to(REPO / "birda_tpu_torch")
+
+
+# -- the secondary heads' host code ---------------------------------------------
+
+#: Modules (and the registry's data file) the port copies as they are; only
+#: the registry loader names its own package, for its resource files.
+HEAD_COPIES = ["config/bat.py", "config/geomodel.py", "cli/species.py",
+               "registry/__init__.py", "registry/schema.py",
+               "registry/loader.py", "registry/installer.py",
+               "registry/registry.json"]
+
+
+def test_import_scan_covers_the_heads_modules():
+    for rel in ("birda_tpu_torch/inference/range_filter.py",
+                "birda_tpu_torch/models/custom.py",
+                "birda_tpu_torch/models/regional.py",
+                "birda_tpu_torch/registry/selection.py",
+                *(f"birda_tpu_torch/{r}" for r in HEAD_COPIES
+                  if r.endswith(".py"))):
+        assert rel in PORT_SOURCES
+
+
+@pytest.mark.parametrize("rel", HEAD_COPIES)
+def test_heads_host_module_is_a_copy(rel):
+    want = (REPO / "birda_tpu" / rel).read_bytes()
+    got = (REPO / "birda_tpu_torch" / rel).read_bytes()
+    assert got.replace(b'"birda_tpu_torch.registry"',
+                       b'"birda_tpu.registry"') == want
+
+
+def test_registry_is_read_from_the_port():
+    from birda_tpu_torch.registry import loader
+
+    text = (REPO / "birda_tpu_torch" / "registry" / "registry.json") \
+        .read_text(encoding="utf-8")
+    assert loader.embedded_registry_text() == text
+    assert loader.load_embedded().range_filter.id == "birdnet-geomodel-v3"
+
+
+def test_variant_selection_is_the_jax_packages():
+    """The host pieces of registry/selection.py are copies; the probe asks
+    torch for a card where the JAX module asks jax for its backend, and
+    every model of the registry selects the same variant."""
+    import torch
+
+    from birda_tpu.registry import loader as jax_loader
+    from birda_tpu.registry import selection as jax_selection
+
+    from birda_tpu_torch.registry import loader, selection
+
+    for name in ("_precision_order", "select_variant"):
+        assert _source(selection, name) == _source(jax_selection, name)
+    probe = selection.SystemProbe.detect()
+    assert probe.backend == ("cuda" if torch.cuda.is_available() else "cpu")
+    jax_models = {m.id: m for m in jax_loader.load_embedded().models}
+    picked = 0
+    for model in loader.load_embedded().models:
+        if not model.has_variants or not any(
+                v.region is None for v in model.variants):
+            continue
+        got = selection.select_variant(model, probe=probe)
+        want = jax_selection.select_variant(
+            jax_models[model.id], probe=jax_selection.SystemProbe("cpu"))
+        assert got.id == want.id
+        picked += 1
+    assert picked
+
+
+@pytest.mark.parametrize("configured", ["explicit", "missing", "registry"])
+def test_geomodel_resolution_is_the_jax_packages(tmp_path, monkeypatch,
+                                                 configured):
+    """resolve_geomodel gives the same outcome and reason in both packages
+    for explicit paths, a configured path that does not exist and the
+    registry's install location with nothing installed (no download)."""
+    from birda_tpu.config import geomodel as jax_geomodel
+    from birda_tpu.config.types import Config as JaxConfig
+    from birda_tpu.registry import loader as jax_loader
+
+    from birda_tpu_torch.config import geomodel
+    from birda_tpu_torch.config.types import Config
+    from birda_tpu_torch.registry import loader
+
+    monkeypatch.setenv("XDG_DATA_HOME", str(tmp_path / "data"))
+    geo, labels = tmp_path / "g.onnx", tmp_path / "g.txt"
+    if configured == "explicit":
+        geo.write_bytes(b"x")
+        labels.write_text("A_a\n")
+    out = []
+    for cfg_cls, mod, reg in ((JaxConfig, jax_geomodel, jax_loader),
+                              (Config, geomodel, loader)):
+        cfg = cfg_cls()
+        if configured != "registry":
+            cfg.defaults.geomodel, cfg.defaults.geomodel_labels = geo, labels
+        res = mod.resolve_geomodel(cfg, reg.load_embedded())
+        out.append((type(res).__name__, vars(res)))
+    assert out[0] == out[1]

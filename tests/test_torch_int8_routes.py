@@ -86,6 +86,14 @@ CONV_CASES = {
     # depth 1040, the fp32 route's limit: partial sums up to 1040 * 127^2
     "depthwise_depth_1040": ((1, 2, 1, 1040), (2, 1, 1, 1040), (1, 1),
                              ((0, 0), (0, 0)), (1, 1), 2),
+    # Deeper than 1040: fp32_split cuts the channels (depth 1089 = 33 x 33),
+    # the kernel's rows (kernel 40 x 30, dilated rows), or both.
+    "grouped_depth_1089": ((2, 132, 40, 1), (4, 33, 33, 1), (1, 1),
+                           ((0, 0), (0, 0)), (1, 1), 4),
+    "depthwise_kernel_rows": ((1, 2, 82, 32), (2, 1, 40, 30), (1, 1),
+                              ((0, 0), (0, 0)), (2, 1), 2),
+    "grouped_rows_and_channels": ((1, 4, 36, 35), (4, 2, 33, 33), (2, 1),
+                                  ((1, 1), (0, 0)), (1, 1), 2),
 }
 
 
@@ -97,6 +105,8 @@ def _routes(case) -> list[str]:
         routes.append("im2col")
         if w[2:] == (1, 1) and strides == (1, 1) and pads == ((0, 0), (0, 0)):
             routes.append("int_mm")
+    else:
+        routes.append("fp32_split")
     if depth <= tl.EXACT_FP32_DEPTH:
         routes.append("fp32")
     return routes
@@ -149,6 +159,8 @@ def test_matmul_routes_are_exact(m, k, n, kind):
                  id="pointwise-strided"),
     pytest.param((8, 4, 1, 1), 1, (1, 1), ((1, 1), (1, 1)), "im2col",
                  id="pointwise-padded"),
+    pytest.param((8, 33, 33, 1), 8, (1, 1), ((0, 0), (0, 0)), "fp32_split",
+                 id="grouped-deeper-than-1040"),
 ])
 def test_card_route_follows_static_shapes(shape, group, strides, pads, want):
     x_shape = (2, shape[1] * group, 6, 6)
@@ -159,12 +171,22 @@ def test_card_route_follows_static_shapes(shape, group, strides, pads, want):
 
 
 def test_grouped_conv_beyond_exact_fp32_depth_is_refused():
-    """No exact route exists for a grouped conv deeper than 1040 on the
-    card: it raises, never rounds."""
-    w_shape = (4, 33, 33, 1)  # depth 1089
+    """A single fp32 conv deeper than 1040 is refused, never rounded: the
+    card's route for such a grouped conv is ``fp32_split``, which is exact
+    where the unsplit fp32 conv is not (1089 · 127² > 2²⁴)."""
+    x_shape, w_shape = (2, 132, 40, 1), (4, 33, 33, 1)  # depth 1089
+    assert tl.int_conv_route(x_shape, w_shape, (1, 1), ((0, 0), (0, 0)),
+                             (1, 1), 4, "cuda") == "fp32_split"
+    x, w = (torch.from_numpy(v)
+            for v in _operands(x_shape, w_shape, "extreme"))
     with pytest.raises(tl.UnsupportedOnnxOp, match="no exact route"):
-        tl.int_conv_route((2, 132, 40, 1), w_shape, (1, 1),
-                          ((0, 0), (0, 0)), (1, 1), 4, "cuda")
+        tl.int_conv(x, w, (1, 1), ((0, 0), (0, 0)), (1, 1), 4, route="fp32")
+    got = tl.int_conv(x, w, (1, 1), ((0, 0), (0, 0)), (1, 1), 4,
+                      route="fp32_split")
+    assert int(got.min()) == -1089 * 127 * 127 < -(1 << 24)
+    want = _ref_conv(x.numpy(), w.numpy(), (1, 1), ((0, 0), (0, 0)), (1, 1),
+                     4)
+    assert np.array_equal(got.numpy(), want)
 
 
 def test_integer_routes_give_shapes_on_meta():

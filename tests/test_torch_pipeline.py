@@ -208,8 +208,47 @@ def test_runs_without_jax_flax_pyarrow_or_click(setup, home):
     """The port runs where neither jax, flax, pyarrow, click nor the JAX
     package itself can be imported: tiny v2.4 and tiny Perch v2 (scores
     below 1e-3 with random weights, so a floor of 1e-6 and the top 5), in
-    fp32 and bf16, and tiny v2.4 in int8 and mixed (calibrated here)."""
+    fp32 and bf16, and tiny v2.4 in int8 and mixed (calibrated here); and
+    the CLI on tiny v2.4 with ``--bat``, ``--lat/--lon/--week`` (the
+    fixture geomodel) and ``--region-labels``."""
+    from birda_tpu_torch.onnx.encode import (make_fixture_geomodel, model,
+                                             node, tensor, value_info)
+
     wavs, kw = setup
+    rng = np.random.default_rng(0)
+    bat_dir = home / "data" / "birda" / "models" / "bat"
+    bat_dir.mkdir(parents=True)
+    (bat_dir / "BattyBirdNET-UK-256kHz_fp32.onnx").write_bytes(model(
+        [node("Gemm", ["input", "W", "B"], ["logits"]),
+         node("Sigmoid", ["logits"], ["probabilities"])],
+        inputs=[value_info("input", ["batch", 1024])],
+        outputs=[value_info("probabilities", ["batch", 6])],
+        initializers=[tensor("W", rng.normal(0, 0.05, (1024, 6))
+                             .astype(np.float32)),
+                      tensor("B", np.zeros(6, np.float32))]))
+    (bat_dir / "BattyBirdNET-UK-256kHz_Labels.txt").write_text(
+        "".join(f"Bat sp{i} x_Bat {i}\n" for i in range(6)))
+    bat_wav = home / "bat.wav"
+    write_wav(bat_wav, rng.normal(0, 0.2, 256_000).astype(np.float32),
+              256_000)
+    labels = synthetic_labels(6522)
+    geo, geo_labels = home / "geo.onnx", home / "geo.txt"
+    geo.write_bytes(make_fixture_geomodel(num_species=64))
+    geo_labels.write_text("".join(f"{lab}\n" for lab in labels[:64]))
+    region = home / "region.txt"
+    region.write_text("".join(f"{lab}\n" for lab in labels[::8]))
+    base = ["--model-path", str(kw["model_path"]), "--labels-path",
+            str(kw["labels_path"]), "--model-type", "birdnet-v24", "--cpu",
+            "-f", "csv", "-q", "-c", "0"]
+    cli_runs = [
+        [str(bat_wav), "--bat", "uk", "-o", str(home / "cli-bat")],
+        [str(wavs[0]), "--lat", "0.5", "--lon", "-1.2", "--week", "2",
+         "--range-threshold", "0.01", "--geomodel-path", str(geo),
+         "--geomodel-labels-path", str(geo_labels), "-o",
+         str(home / "cli-range")],
+        [str(wavs[0]), "--region-labels", str(region), "-o",
+         str(home / "cli-region")],
+    ]
     perch = fs.build(fs.tiny_spec(fs.PERCH_V2_SPEC), seed=1)
     perch_model = home / "perch-v2-tiny.onnx"
     perch_model.write_bytes(perch.model_bytes)
@@ -233,9 +272,12 @@ runs += [analyze({[str(w) for w in wavs]!r}, model_path=models[0][0],
                  labels_path=models[0][1], model_type="birdnet-v24",
                  min_confidence=0.1, device="cpu", precision=p)
          for p in ("int8", "mixed")]
+from birda_tpu_torch.cli.main import main
+cli = [main(["analyze", *a, *{base!r}]) for a in {cli_runs!r}]
 loaded = sorted(m for m, v in sys.modules.items() if v is not None
                 and m.split(".")[0] in {blocked!r})
-print(json.dumps({{"exit": [r.exit_code for r in runs], "loaded": loaded,
+print(json.dumps({{"exit": [r.exit_code for r in runs], "cli": cli,
+                  "loaded": loaded,
                   "detections": [len(f.detections) for r in runs
                                  for f in r.files]}}))
 """
@@ -244,8 +286,14 @@ print(json.dumps({{"exit": [r.exit_code for r in runs], "loaded": loaded,
     assert r.returncode == 0, r.stderr
     out = json.loads(r.stdout.strip().splitlines()[-1])
     assert out["exit"] == [0] * 6
+    assert out["cli"] == [0] * 3
     assert out["loaded"] == []
     assert len(out["detections"]) == 12 and all(out["detections"])
+    for name, species in (("cli-bat", "Bat sp"), ("cli-range", "Species sp"),
+                          ("cli-region", "Species sp")):
+        (table,) = (home / name).glob("*.csv")
+        rows = list(csv.reader(open(table, encoding="utf-8-sig")))[1:]
+        assert rows and all(r[2].startswith(species) for r in rows), name
 
 
 def test_chip_smoke_refuses_without_card_or_checkout(tmp_path):
@@ -261,10 +309,10 @@ def test_chip_smoke_refuses_without_card_or_checkout(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs,what", [
-    pytest.param({"bat": "bat-v1"}, "--bat", id="bat"),
+    pytest.param({"devices": 2}, "--devices above 1", id="devices"),
     pytest.param({"jobs": 2}, "--jobs above 1", id="jobs"),
-    pytest.param({"lat": 60.2, "lon": 24.9, "week": 20},
-                 "geomodel range filter", id="range-filter"),
+    pytest.param({"model_path": "synthetic:tiny"}, "synthetic:",
+                 id="synthetic"),
 ])
 def test_unported_options_are_refused(setup, kwargs, what):
     import birda_tpu_torch.api as torch_api
