@@ -189,8 +189,9 @@ def analyze(
 ) -> AnalyzeResult:
     """Analyze audio files and return detections in memory (no output
     files). Model selection, bounds and error semantics follow the JAX
-    package's ``birda_tpu.api.analyze``; options this port does not run yet
-    raise a typed ``ClassifierBuild`` error."""
+    package's ``birda_tpu.api.analyze``: ``jobs`` runs per-file workers,
+    ``devices`` shards each batch over N replicas (None = every local CUDA
+    device, 1 = no sharding — the CLI's ``--devices``)."""
     from . import constants
     from .config import file as config_file
     from .config.types import Config, ModelType

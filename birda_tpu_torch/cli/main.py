@@ -189,8 +189,8 @@ def _add_analyze(sub) -> None:
                    type=_checked(v.parse_stale_lock_timeout),
                    default=_env("BIRDA_STALE_LOCK_TIMEOUT"))
     a.add_argument("-j", "--jobs", type=int, default=_env("BIRDA_JOBS") or 1,
-                   help="Concurrent per-file workers (not yet ported: above "
-                        "1 is refused).")
+                   help="Concurrent per-file workers: one file's decode "
+                        "overlaps another's inference on the card.")
     _flag(a, "--no-progress", env="BIRDA_NO_PROGRESS")
     a.add_argument("--stdout", dest="stdout_mode", action="store_true",
                    help="Stream detections to stdout; write no files.")
@@ -203,8 +203,11 @@ def _add_analyze(sub) -> None:
                    help="Decode threads per file (0-64): 0 = auto, 1 = one.")
     a.add_argument("--devices", type=_int_range(1, 4096),
                    default=_env("BIRDA_DEVICES"),
-                   help="Devices to shard each batch over (not yet ported: "
-                        "above 1 is refused).")
+                   help="Devices to shard each batch over (data "
+                        "parallelism, one replica per device). Default: "
+                        "every local CUDA device (the CPU only on an "
+                        "explicit N); 1 disables sharding (also "
+                        "BIRDA_NO_SHARD=1).")
     a.add_argument("--precision",
                    type=_choice(["fp32", "bf16", "mixed", "int8"]),
                    default=_env("BIRDA_PRECISION") or "fp32",

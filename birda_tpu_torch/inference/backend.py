@@ -2,8 +2,8 @@
 ``birda_tpu/inference/backend.py`` for CUDA and the CPU.
 
 The port runs on the card: ``auto`` (the default) and ``cuda``/``gpu``
-resolve to the first CUDA device, and without one they fail loudly with a
-typed error that names the CPU request. Only an explicit ``cpu`` runs on
+resolve to the CUDA devices (an unsharded run uses the first), and without
+one they fail loudly with a typed error that names the CPU request. Only an explicit ``cpu`` runs on
 the CPU. The status keeps the JAX package's ``BackendStatus`` shape
 (``requested``/``actual``/``fallback_reason``), which the JSON protocol
 reports.
@@ -48,8 +48,9 @@ def available_backends() -> list[str]:
 
 def select_backend(requested: str = AUTO
                    ) -> tuple[list[torch.device], BackendStatus]:
-    """Resolve the requested backend to ``([device], status)``; ``gpu`` is
-    an explicit CUDA request."""
+    """Resolve the requested backend to ``(devices, status)``: every CUDA
+    device of this process in index order, or the CPU; ``gpu`` is an
+    explicit CUDA request."""
     requested = (requested or AUTO).lower()
     if requested == "gpu":
         requested = CUDA
@@ -64,4 +65,5 @@ def select_backend(requested: str = AUTO
         raise RuntimeInitialization(
             f"{what} but no CUDA device is available; pass device=\"cpu\" "
             "(--cpu) to run on the CPU")
-    return [torch.device(CUDA, 0)], BackendStatus(requested, CUDA)
+    return ([torch.device(CUDA, i) for i in range(torch.cuda.device_count())],
+            BackendStatus(requested, CUDA))

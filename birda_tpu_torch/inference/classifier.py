@@ -1,15 +1,22 @@
 """The classifier: the port of ``birda_tpu/inference/classifier.py``.
 
 Batched inference over one :class:`~birda_tpu_torch.models.zoo.LoadedModel`
-on one ``torch.device``, with the same per-shape warm-up registry and the
-same streaming chunk interface. The device step of a chunk is: int16
-dequantization, the optional device resampler, the overlapped windows as an
-``unfold`` view, the model, and a top-k; only ``[B, K]`` values/indices
-(and embeddings when a secondary head needs them) come back to the host.
+with the same per-shape warm-up registry and the same streaming chunk
+interface. The device step of a chunk is: int16 dequantization, the
+optional device resampler, the windows (the native models' hop-grid mel
+front-end, else an ``unfold`` view), the model, and a top-k; only ``[B, K]``
+values/indices (and embeddings when a secondary head needs them) come back
+to the host.
 
 The host keeps decoding while the card computes: each chunk is copied from
-a pinned host buffer with ``non_blocking=True`` and :meth:`PendingChunk.collect`
-waits on a CUDA event recorded after the step.
+a pinned host buffer with ``non_blocking=True``, the results come back the
+same way, and :meth:`PendingChunk.collect` waits on a CUDA event recorded
+after them.
+
+With a ``mesh`` (``--devices``: an ordered list of replica devices) every
+replica holds its own copy of the weights, every chunk is copied to each,
+and replica ``i`` computes windows ``[i·B/N, (i+1)·B/N)``
+(:func:`birda_tpu_torch.parallel.sharding.shard_data_parallel`).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from .geomodel import GeomodelScores, MappingSummary
 from .geomodel_filter import FilterSettings, Prediction, filter_predictions
 
 from ..models.zoo import LoadedModel
+from ..parallel.sharding import Gather, shard_data_parallel
 from .backend import BackendStatus, select_backend
 
 logger = logging.getLogger(__name__)
@@ -94,10 +102,6 @@ def _oom_error(batch_size: int, e: BaseException) -> InferenceErr:
         f"batch size (--batch-size {max(1, batch_size // 2)})")
 
 
-def _to_host(out: tuple) -> tuple[np.ndarray, ...]:
-    return tuple(o.cpu().numpy() for o in out)
-
-
 class BirdClassifier:
     """Batched classifier over one model graph."""
 
@@ -110,6 +114,7 @@ class BirdClassifier:
         range_filter_data: Optional[RangeFilterData] = None,
         species_list: Optional[set[str]] = None,
         want_embeddings: bool = False,
+        mesh=None,
     ):
         self.model = model
         if len(model.labels) != model.num_classes:
@@ -130,9 +135,14 @@ class BirdClassifier:
 
         devices, status = select_backend(device)
         self.backend_status: BackendStatus = status
-        self.device: torch.device = devices[0]
+        #: The replica devices of --devices, or None for one device.
+        self.mesh: Optional[list[torch.device]] = \
+            list(mesh) if mesh is not None else None
+        self.replicas: list[torch.device] = self.mesh or [devices[0]]
+        self.device: torch.device = self.replicas[0]
         if getattr(model, "bind_device", None) is not None:
-            model.bind_device(self.device)
+            for replica in dict.fromkeys(self.replicas):
+                model.bind_device(replica)
 
     # -- introspection ------------------------------------------------------
 
@@ -175,11 +185,18 @@ class BirdClassifier:
             return vals, idx, out["embeddings"]
         return vals, idx
 
-    def _run_device(self, batch: np.ndarray) -> tuple:
+    def _run_device(self, batch: np.ndarray) -> tuple[np.ndarray, ...]:
+        """The step over a ``[B, sample_count]`` batch, rows sharded over
+        the replicas; the outputs on the host."""
         x = torch.from_numpy(np.ascontiguousarray(batch, np.float32))
-        try:
+
+        def shard(device, rows):
             with torch.inference_mode():
-                return self._step(x.to(self.device))
+                return self._step(x[rows].to(device))
+
+        try:
+            return shard_data_parallel(shard, self.replicas)(
+                x.shape[0]).wait()
         except torch.cuda.OutOfMemoryError as e:
             raise _oom_error(batch.shape[0], e) from e
 
@@ -200,7 +217,7 @@ class BirdClassifier:
         dummy = np.zeros((batch_size, self.sample_count), np.float32)
         start = time.monotonic()
         try:
-            _to_host(self._run_device(dummy))
+            self._run_device(dummy)
         except InferenceErr:
             raise
         except Exception as e:  # noqa: BLE001 — typed at the boundary
@@ -228,7 +245,7 @@ class BirdClassifier:
                 f"batch shape {segments.shape} does not match "
                 f"[*, {self.sample_count}]")
         try:
-            out = _to_host(self._run_device(segments))
+            out = self._run_device(segments)
         except InferenceErr:
             raise
         except Exception as e:  # noqa: BLE001
@@ -278,7 +295,11 @@ class ChunkRunner:
     The host ships one contiguous chunk of ``(batch-1)*step + sample_count``
     samples as int16 with a reconstruction scale (``src_rate`` set: at the
     source rate, resampled on the card); the card dequantizes, resamples,
-    windows and runs the model.
+    windows and runs the model. ``--jobs`` workers share one runner: the
+    slot rotation, the fill of a pinned buffer and the enqueue of its
+    copies hold a lock, so no two workers fill one buffer and no buffer is
+    refilled while a copy out of it is in flight; the steps themselves are
+    enqueued outside it.
     """
 
     #: Pinned host buffers in rotation: the host fills one while the copy
@@ -309,23 +330,38 @@ class ChunkRunner:
             self.chunk_samples = max(base, src_chunk_samples or 0)
         else:
             self.chunk_samples = self.chunk_model
+        mel_cfg = classifier.model.mel_config
+        # The native models' hop-grid mel front-end needs the window step
+        # on the hop grid; otherwise the windows are framed one by one. It
+        # runs in float32 on every device: the JAX package computes it in
+        # bf16 only on a TPU, in float32 on a GPU and on the CPU.
+        self._mel_cfg = (mel_cfg if mel_cfg is not None
+                         and step_samples % mel_cfg.hop == 0 else None)
 
-        self._device = classifier.device
+        self._replicas = classifier.replicas
+        if batch_size % len(self._replicas) != 0:
+            raise ValueError(
+                f"chunk runner batch {batch_size} not divisible by mesh "
+                f"size {len(self._replicas)}")
+        self._on_card = any(d.type == "cuda" for d in self._replicas)
         dtype = torch.int16 if transport == "int16" else torch.float32
-        pinned = self._device.type == "cuda"
         self._host = [torch.empty(self.chunk_samples, dtype=dtype,
-                                  pin_memory=pinned)
+                                  pin_memory=self._on_card)
                       for _ in range(self.N_HOST_BUFFERS)]
-        self._copied: list[Optional[torch.cuda.Event]] = \
-            [None] * self.N_HOST_BUFFERS
+        #: Per buffer, the events after the last copies out of it.
+        self._copied: list[list[torch.cuda.Event]] = \
+            [[] for _ in range(self.N_HOST_BUFFERS)]
         self._next = 0
+        self._fill_lock = threading.Lock()
         self._warm = False
         self._warm_lock = threading.Lock()
 
-    def _step(self, chunk: torch.Tensor, scale: float) -> tuple:
-        """The device step: chunk [chunk_samples] -> (values, indices[,
-        embeddings]) for ``batch_size`` overlapped windows."""
+    def _step(self, chunk: torch.Tensor, scale: float, rows: slice) -> tuple:
+        """The device step of windows ``rows`` of the chunk: chunk
+        [chunk_samples] -> (values, indices[, embeddings]) for those
+        overlapped windows."""
         clf = self.classifier
+        seg, step = clf.sample_count, self.step_samples
         if self.transport == "int16":
             x = chunk.float() * scale
         else:
@@ -336,24 +372,48 @@ class ChunkRunner:
             x = resample_device(x[None, :], self.src_rate,
                                 clf.sample_rate)[0]
             x = x[:self.chunk_model]
-        frames = x.unfold(0, clf.sample_count, self.step_samples)
-        return clf._step(frames)
+        n = rows.stop - rows.start
+        span = x[rows.start * step:rows.start * step + (n - 1) * step + seg]
+        if self._mel_cfg is not None:
+            from ..ops.melspec import melspec_from_chunk
 
-    def _dispatch(self, payload: np.ndarray, scale: float) -> tuple:
-        """Copy the payload to the card and enqueue the step."""
-        slot = self._next
-        self._next = (slot + 1) % self.N_HOST_BUFFERS
-        if self._copied[slot] is not None:
-            self._copied[slot].synchronize()  # the last copy out of it
-        host = self._host[slot]
-        host.numpy()[:] = payload
-        chunk = host.to(self._device, non_blocking=True)
-        if self._device.type == "cuda":
-            self._copied[slot] = torch.cuda.Event()
-            self._copied[slot].record()
-        try:
+            return clf._step(melspec_from_chunk(span, self._mel_cfg, n, step,
+                                                seg))
+        return clf._step(span.unfold(0, seg, step))
+
+    def _upload(self, payload: np.ndarray) -> dict:
+        """The payload on every replica device: ``{device: chunk}``."""
+        devices = dict.fromkeys(self._replicas)
+        if not self._on_card:
+            chunk = torch.from_numpy(np.array(payload))
+            return {d: chunk for d in devices}
+        with self._fill_lock:
+            slot = self._next
+            self._next = (slot + 1) % self.N_HOST_BUFFERS
+            for event in self._copied[slot]:
+                event.synchronize()  # the last copies out of this buffer
+            host = self._host[slot]
+            host.numpy()[:] = payload
+            chunks, events = {}, []
+            for device in devices:
+                with torch.cuda.device(device):
+                    chunks[device] = host.to(device, non_blocking=True)
+                    events.append(torch.cuda.Event())
+                    events[-1].record()
+            self._copied[slot] = events
+        return chunks
+
+    def _dispatch(self, payload: np.ndarray, scale: float) -> Gather:
+        """Copy the payload to the replicas and enqueue each one's step."""
+        chunks = self._upload(payload)
+
+        def shard(device, rows):
             with torch.inference_mode():
-                return self._step(chunk, scale)
+                return self._step(chunks[device], scale, rows)
+
+        try:
+            return shard_data_parallel(shard, self._replicas)(
+                self.batch_size)
         except torch.cuda.OutOfMemoryError as e:
             raise _oom_error(self.batch_size, e) from e
 
@@ -363,7 +423,7 @@ class ChunkRunner:
                 return None
             start = time.monotonic()
             dtype = np.int16 if self.transport == "int16" else np.float32
-            _to_host(self._dispatch(np.zeros(self.chunk_samples, dtype), 1.0))
+            self._dispatch(np.zeros(self.chunk_samples, dtype), 1.0).wait()
             elapsed = time.monotonic() - start
             self._warm = True
             return WarmupReport(
@@ -389,11 +449,7 @@ class ChunkRunner:
             raise
         except Exception as e:  # noqa: BLE001
             raise InferenceErr(str(e)) from e
-        done = None
-        if self._device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record()
-        return PendingChunk(self, out, n_real, options, done)
+        return PendingChunk(self, out, n_real, options)
 
     def _quantize(self, chunk: np.ndarray):
         chunk = np.asarray(chunk, np.float32)
@@ -465,21 +521,17 @@ def _decode(labels: list[str], out: tuple, n_rows: int,
 class PendingChunk:
     """In-flight device work for one chunk (see ``predict_chunk_async``)."""
 
-    def __init__(self, runner: ChunkRunner, out: tuple, n_real: int,
-                 options: InferenceOptions,
-                 done: Optional[torch.cuda.Event] = None):
+    def __init__(self, runner: ChunkRunner, out: Gather, n_real: int,
+                 options: InferenceOptions):
         self._runner = runner
         self._out = out
         self._n_real = n_real
         self._options = options
-        self._done = done
 
     def collect(self) -> list[PredictionResult]:
         """Wait for the device results and decode them."""
         try:
-            if self._done is not None:
-                self._done.synchronize()
-            out = _to_host(self._out)
+            out = self._out.wait()
         except torch.cuda.OutOfMemoryError as e:
             raise _oom_error(self._runner.batch_size, e) from e
         except Exception as e:  # noqa: BLE001

@@ -127,13 +127,15 @@ class FileLock:
             _unregister(lock_path)
             raise LockCreate(str(lock_path), str(e)) from e
 
+        from ..parallel.mesh import process_index
+
         info = {
             "pid": os.getpid(),
             "hostname": socket.gethostname() or "unknown",
-            # Pod rank: the cross-host tie-break / observability field for
-            # multi-host directory runs (SURVEY §2.3 row 3). The PyTorch
-            # port runs as one process, so its rank is 0.
-            "process_index": 0,
+            # Pod rank (0 single-host): the cross-host tie-break /
+            # observability field for multi-host directory runs
+            # (SURVEY §2.3 row 3).
+            "process_index": process_index(),
             "started": datetime.datetime.now(datetime.timezone.utc)
             .isoformat()
             .replace("+00:00", "Z"),

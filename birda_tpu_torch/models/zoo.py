@@ -1,16 +1,27 @@
-"""Model zoo: the port of ``birda_tpu/models/zoo.py`` for ONNX graphs.
+"""Model zoo: the port of ``birda_tpu/models/zoo.py``.
 
 A :class:`LoadedModel` is what the classifier consumes: ``apply(waveform
 [B, sample_count]) -> {"scores", "logits", "embeddings"}`` (float32 tensors
-on the waveform's device) plus its contract and labels. The JAX module
-imports jax and flax at load, so its ONNX path is ported here with the same
-fields and names; the native flax backbone is not part of this port.
+on the waveform's device) plus its contract and labels. Two construction
+paths, as in the JAX module:
+
+- :func:`native_model` / :func:`tiny_model` — the native architecture
+  (:mod:`.backbone`) with deterministic synthetic weights (the
+  ``synthetic:`` model paths), the JAX package's weights bit for bit;
+- :func:`onnx_model` / :func:`onnx_model_int8` — an exported ONNX graph
+  through the torch lowering.
+
+Either keeps one copy of its weights per device it runs on, so replicas on
+several devices (``--devices``) each compute with their own.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import os
+import threading
+import zlib
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Callable
@@ -18,9 +29,28 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from .contracts import ModelConfig
+from ..ops.melspec import MelSpecConfig
+from . import contracts
+from .backbone import AudioClassifier, flax_leaves, load_flax_leaf
+from .contracts import ModelConfig, ModelFamily
 
 logger = logging.getLogger(__name__)
+
+#: Mel front-end defaults per family (native path; the real graphs carry
+#: their own front-end in-graph and go through the ONNX path instead).
+#: Hops divide the segment length so the chunk runner's hop-grid framing
+#: applies at zero overlap (144000 % 576 == 0, 160000 % 640 == 0).
+MEL_CONFIGS = {
+    ModelFamily.BIRDNET_V24: MelSpecConfig(sample_rate=48_000, n_fft=1024,
+                                           hop=576, n_mels=128, fmax=15_000.0),
+    ModelFamily.BSG_FI_V44: MelSpecConfig(sample_rate=48_000, n_fft=1024,
+                                          hop=576, n_mels=128, fmax=15_000.0),
+    ModelFamily.BIRDNET_V30: MelSpecConfig(sample_rate=32_000, n_fft=1024,
+                                           hop=640, n_mels=128, fmax=16_000.0),
+    ModelFamily.PERCH_V2: MelSpecConfig(sample_rate=32_000, n_fft=1024,
+                                        hop=640, n_mels=128, fmax=16_000.0),
+}
+
 
 @dataclass
 class LoadedModel:
@@ -28,16 +58,18 @@ class LoadedModel:
 
     config: ModelConfig
     labels: list[str]
-    #: waveform [batch, sample_count] -> {"scores", "logits", "embeddings"}
+    #: waveform [batch, sample_count] -> {"scores", "logits", "embeddings"},
+    #: on the waveform's device with that device's copy of the weights
     apply: Callable[[Any], dict]
-    #: human-readable source ("onnx")
+    #: human-readable source ("native-synthetic", "native-weights", "onnx")
     source: str = "onnx"
-    #: mel front-end config for precomputed-mel models; None for ONNX graphs.
+    #: mel front-end config when apply() also takes precomputed [B, F, M]
+    #: mel (native models); None for opaque graphs (ONNX).
     mel_config: object = None
-    #: move the model's weights to a ``torch.device`` once (one copy shared
-    #: by every batch shape). The classifier calls this after backend
-    #: selection.
-    bind_device: Callable[[torch.device], None] | None = None
+    #: place a copy of the weights on a ``torch.device`` now rather than at
+    #: its first ``apply`` there (one copy per device, shared by every batch
+    #: shape). The classifier calls this for each of its devices.
+    bind_device: Callable[[torch.device], Any] | None = None
     #: reduced-precision observability: {"mode": "bf16"}, the int8/mixed
     #: selection counts (:func:`onnx_model_int8`), or None for fp32.
     precision_info: dict | None = None
@@ -51,6 +83,24 @@ def synthetic_labels(n: int, prefix: str = "Species") -> list[str]:
     """Deterministic placeholder labels, BirdNET `Scientific_Common` shape
     (the same strings as ``birda_tpu.models.zoo.synthetic_labels``)."""
     return [f"{prefix} sp{i:05d}_{prefix} common {i:05d}" for i in range(n)]
+
+
+class _PerDevice:
+    """One copy of a model's weights per ``torch.device``, made by
+    ``make(device)`` on first use; thread-safe (``--jobs`` workers and
+    replicas share it)."""
+
+    def __init__(self, make: Callable[[torch.device], Any]):
+        self._make = make
+        self._copies: dict[torch.device, Any] = {}
+        self._lock = threading.Lock()
+
+    def __call__(self, device: torch.device):
+        with self._lock:
+            hit = self._copies.get(device)
+            if hit is None:
+                hit = self._copies[device] = self._make(device)
+            return hit
 
 
 def params_from_numpy(params: dict[str, np.ndarray], device,
@@ -171,20 +221,23 @@ def _loaded_from_onnx_fn(
     """Wrap a lowered :class:`OnnxFunction` as a :class:`LoadedModel`.
 
     ``cast_float=True`` stores lifted float params in bfloat16; integer
-    params keep their dtype. The params start on the CPU and move to the
-    card once, in ``bind_device``.
+    params keep their dtype. The params start on the CPU; each device gets
+    its own copy, with the kernels' weight layouts made once for it.
     """
-    holder = {"params": params_from_numpy(
-        fn.params, torch.device("cpu"),
-        torch.bfloat16 if cast_float else None)}
+    host = params_from_numpy(fn.params, torch.device("cpu"),
+                             torch.bfloat16 if cast_float else None)
 
-    def bind_device(device):
-        holder["params"] = {k: v.to(device)
-                            for k, v in holder["params"].items()}
-        fn.prepare(holder["params"])
+    def to_device(device):
+        if device.type == "cpu":
+            return host
+        params = {k: v.to(device) for k, v in host.items()}
+        fn.prepare(params)
+        return params
+
+    params_on = _PerDevice(to_device)
 
     def apply(waveform):
-        out = fn(waveform, params=holder["params"])
+        out = fn(waveform, params=params_on(waveform.device))
         if isinstance(out, tuple):
             scores, embeddings = out[0], out[1] if len(out) > 1 else None
         else:
@@ -200,4 +253,116 @@ def _loaded_from_onnx_fn(
         return result
 
     return LoadedModel(config=config, labels=labels, apply=apply,
-                       source=source, bind_device=bind_device)
+                       source=source, bind_device=params_on)
+
+
+# ---------------------------------------------------------------------------
+# The native family
+# ---------------------------------------------------------------------------
+
+def _synthesize_params(module: AudioClassifier, seed: int) -> dict:
+    """The JAX package's deterministic weights for ``module``, as its flax
+    variables tree (nested dicts of float32 numpy arrays, flax layouts).
+
+    Each leaf is seeded from its flax path, ``zlib.crc32(path) ^ (seed *
+    2654435761)`` masked to 32 bits (crc32, not ``hash()``: str hashing is
+    salted per process): norm scales and variances are ones, biases and
+    means zeros, tensors of rank >= 2 fan-in-scaled normals drawn in flax's
+    shape, anything else zeros. The port has no flax: the tree is the one
+    :func:`~.backbone.flax_leaves` enumerates from the module itself.
+    """
+    variables: dict = {}
+    for path, shape, _ in flax_leaves(module):
+        names = path.split("/")
+        leaf_name = names[-1]
+        key = zlib.crc32(path.encode()) ^ (seed * 2654435761)
+        rng = np.random.default_rng(key & 0xFFFFFFFF)
+        if leaf_name in ("scale", "var"):
+            arr = np.ones(shape, np.float32)
+        elif leaf_name in ("bias", "mean"):
+            arr = np.zeros(shape, np.float32)
+        elif len(shape) >= 2:
+            fan_in = int(np.prod(shape[:-1]))
+            arr = rng.normal(0.0, (1.0 / max(fan_in, 1)) ** 0.5, shape)
+            arr = arr.astype(np.float32)
+        else:
+            arr = np.zeros(shape, np.float32)
+        node = variables
+        for name in names[:-1]:
+            node = node.setdefault(name, {})
+        node[leaf_name] = arr
+    return variables
+
+
+def native_params_from_flax(module: AudioClassifier, variables) -> None:
+    """Load a flax variables tree (``{"params": ..., "batch_stats": ...}``
+    with numpy leaves in flax layouts, as the JAX package's native model
+    holds them) into ``module``, in place."""
+    for path, _, t in flax_leaves(module):
+        node = variables
+        for name in path.split("/"):
+            node = node[name]
+        load_flax_leaf(t, node)
+
+
+def native_model(
+    family: ModelFamily | str,
+    params=None,
+    labels: list[str] | None = None,
+    seed: int = 0,
+    blocks=None,
+) -> LoadedModel:
+    """The native model of a family, in float32.
+
+    With ``params=None`` the weights are synthesized from ``seed`` (the
+    ``synthetic:`` path of tests and benchmarks: contract- and
+    FLOP-faithful, not score-faithful); else ``params`` is a flax variables
+    tree (:func:`native_params_from_flax`).
+    """
+    family = ModelFamily(family)
+    cfg = contracts.contract_for(family)
+    kwargs = {} if blocks is None else {"blocks": blocks}
+    module = AudioClassifier(
+        mel=MEL_CONFIGS[family],
+        num_classes=cfg.num_classes,
+        embedding_dim=cfg.embedding_dim or 1024,
+        activation=cfg.activation.value,
+        **kwargs,
+    ).eval()
+    if params is None:
+        params = _synthesize_params(module, seed)
+        source = "native-synthetic"
+    else:
+        source = "native-weights"
+    native_params_from_flax(module, params)
+
+    modules = _PerDevice(lambda device: module if device.type == "cpu"
+                         else copy.deepcopy(module).to(device))
+
+    def apply(waveform):
+        from ..onnx.lowering import _full_precision
+
+        with _full_precision():  # float32 products, TF32 off
+            return modules(waveform.device)(waveform)
+
+    return LoadedModel(
+        config=cfg,
+        labels=labels or synthetic_labels(cfg.num_classes),
+        apply=apply,
+        source=source,
+        mel_config=MEL_CONFIGS[family],
+        bind_device=modules,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Tiny variants for tests: same contracts, ~1000x fewer FLOPs.
+# ---------------------------------------------------------------------------
+
+TINY_BLOCKS = ((16, 1, 3, 2, 1), (24, 1, 3, 2, 2), (40, 1, 3, 2, 2))
+
+
+def tiny_model(family: ModelFamily | str = ModelFamily.BIRDNET_V24,
+               seed: int = 0) -> LoadedModel:
+    """Contract-exact but tiny — the fixture-model equivalent for CI."""
+    return native_model(family, seed=seed, blocks=TINY_BLOCKS)

@@ -122,22 +122,39 @@ def _device_of(*xs) -> torch.device:
     raise ValueError("no tensor operand")
 
 
+#: Graph runs inside _full_precision (over every thread) and the caller's
+#: settings saved by the first of them.
+_precision_lock = threading.Lock()
+_precision_runs = 0
+_precision_saved: tuple = ()
+
+
 @contextmanager
 def _full_precision():
     """fp32 products in full fp32 (no TF32) and bf16 products with fp32
     reductions, for the length of one graph run; restores the caller's
-    settings."""
+    settings. The settings are process-wide, so concurrent runs (``--jobs``
+    workers) share one window: the first run in sets them, the last out
+    restores them."""
+    global _precision_runs, _precision_saved
     cudnn, mm = torch.backends.cudnn, torch.backends.cuda.matmul
-    saved = (cudnn.allow_tf32, mm.allow_tf32,
-             mm.allow_bf16_reduced_precision_reduction)
-    cudnn.allow_tf32 = False
-    mm.allow_tf32 = False
-    mm.allow_bf16_reduced_precision_reduction = False
+    with _precision_lock:
+        if _precision_runs == 0:
+            _precision_saved = (cudnn.allow_tf32, mm.allow_tf32,
+                                mm.allow_bf16_reduced_precision_reduction)
+            cudnn.allow_tf32 = False
+            mm.allow_tf32 = False
+            mm.allow_bf16_reduced_precision_reduction = False
+        _precision_runs += 1
     try:
         yield
     finally:
-        (cudnn.allow_tf32, mm.allow_tf32,
-         mm.allow_bf16_reduced_precision_reduction) = saved
+        with _precision_lock:
+            _precision_runs -= 1
+            if _precision_runs == 0:
+                (cudnn.allow_tf32, mm.allow_tf32,
+                 mm.allow_bf16_reduced_precision_reduction) = \
+                    _precision_saved
 
 
 # -- exact integer products ----------------------------------------------------

@@ -27,6 +27,7 @@ weight, not per call.
 from __future__ import annotations
 
 import ctypes
+import threading
 from collections import Counter
 from dataclasses import dataclass
 
@@ -35,6 +36,12 @@ import torch
 #: Kernel launches by kernel name, counted by each wrapper where it launches
 #: its kernel and nowhere else.
 LAUNCHES: Counter = Counter()
+_launches_lock = threading.Lock()  # --jobs workers launch concurrently
+
+
+def _count_launch(name: str) -> None:
+    with _launches_lock:
+        LAUNCHES[name] += 1
 
 #: Widest mel output (sum of the banks) the kernel's register tiling holds.
 MAX_MELS = 256
@@ -256,7 +263,7 @@ def fused_logmel(x: torch.Tensor, w: torch.Tensor, fb: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"fused_logmel kernel launch failed: CUDA error "
                            f"{rc}")
-    LAUNCHES["fused_logmel"] += 1
+    _count_launch("fused_logmel")
     return out
 
 
@@ -347,5 +354,5 @@ def conv1d_stft(x: torch.Tensor, w: torch.Tensor, hop: int,
     if rc != 0:
         raise RuntimeError(f"conv1d_stft kernel launch failed: CUDA error "
                            f"{rc}")
-    LAUNCHES["conv1d_stft"] += 1
+    _count_launch("conv1d_stft")
     return out

@@ -13,11 +13,13 @@ All four precisions run: fp32, bf16, and the calibrated ``mixed`` and
 compute in bf16 on the card and, as the card's test double, on the CPU too.
 So do the secondary heads: the geomodel range filter (queried once on the
 run's device), the bat two-stage head (``--bat``) and regional slicing
-(``--region-labels``).
-
-Not yet ported, and refused with a typed error rather than run
-differently: ``synthetic:`` model paths, ``--jobs`` above 1 and
-``--devices`` above 1.
+(``--region-labels``); the native model family behind ``synthetic:tiny``
+and ``synthetic:full`` model paths (float32 whatever the precision, as in
+the JAX package); ``--jobs N`` per-file worker threads over one shared
+classifier; and ``--devices N`` replicas over the local CUDA devices
+(:func:`resolve_mesh`). A pod joined through the ``BIRDA_COORDINATOR``
+contract divides files through the lock files, each host on its own
+devices.
 """
 
 from __future__ import annotations
@@ -58,7 +60,7 @@ from .pipeline.coordinator import (
 )
 
 from .inference.classifier import BirdClassifier, RangeFilterData
-from .models.zoo import LoadedModel, onnx_model
+from .models.zoo import LoadedModel, native_model, onnx_model, tiny_model
 from .pipeline.processor import process_file
 
 logger = logging.getLogger(__name__)
@@ -75,10 +77,6 @@ _MODEL_TYPE_TO_FAMILY = {
 
 #: Precisions this port runs, the JAX package's four.
 PRECISIONS = ("fp32", "bf16", "mixed", "int8")
-
-
-def _not_yet_ported(what: str) -> ClassifierBuild:
-    return ClassifierBuild(f"{what} is not yet ported to birda_tpu_torch")
 
 
 @dataclass
@@ -114,6 +112,8 @@ class AnalyzeOptions:
     slist: Optional[Path] = None
     stale_lock_timeout: Optional[float] = None
     stdout_mode: bool = False
+    #: Concurrent per-file workers over one classifier: one file's decode
+    #: and host work overlap another's steps on the card.
     jobs: int = 1
     dual_output_mode: bool = False
     top_k: int = constants.DEFAULT_TOP_K
@@ -129,6 +129,9 @@ class AnalyzeOptions:
     precision: str = "fp32"
     calibration_audio: Optional[Path] = None
     stream_detections: bool = False
+    #: Replicas to shard each batch over (data parallelism): None = every
+    #: local CUDA device (the CPU only on an explicit N), 1 = no sharding.
+    #: ``BIRDA_NO_SHARD`` is the environment kill switch.
     devices: Optional[int] = None
     interactive: bool = False
 
@@ -218,9 +221,12 @@ def resolve_model_config(options: AnalyzeOptions, config: Config
 
 
 def resolve_decode_workers(options: AnalyzeOptions) -> int:
-    """0 = auto: split one file's decode across up to 4 cores."""
+    """0 = auto: split one file's decode across up to 4 cores, unless
+    ``--jobs`` already uses them for cross-file parallelism."""
     if options.decode_workers > 0:
         return options.decode_workers
+    if options.jobs > 1:
+        return 1
     import os
 
     return max(1, min(4, os.cpu_count() or 1))
@@ -232,16 +238,23 @@ def load_model_graph(mc: ModelConfig, name: str,
     """Turn a config entry into a runnable graph: an ``.onnx`` file through
     the torch lowering, in any of :data:`PRECISIONS` (on any backend: on the
     CPU the fused front-end takes its plain version). ``device`` is the
-    requested backend, on which int8/mixed calibrate."""
+    requested backend, on which int8/mixed calibrate. The ``synthetic:``
+    scheme builds the native architecture with deterministic weights —
+    ``synthetic:tiny`` (or ``synthetic:``) for CI-sized runs,
+    ``synthetic:full`` for benchmarking — in float32 at any precision."""
     import torch
 
     if precision not in PRECISIONS:
         raise ConfigValidation(
             f"precision must be one of {', '.join(PRECISIONS)} "
             f"(got '{precision}')")
-    if str(mc.path).startswith("synthetic:"):
-        raise _not_yet_ported("the synthetic: native model path")
     family = _MODEL_TYPE_TO_FAMILY[mc.model_type]
+    path_str = str(mc.path)
+    if path_str.startswith("synthetic:"):
+        flavor = path_str.split(":", 1)[1] or "tiny"
+        if flavor == "full":
+            return native_model(family)
+        return tiny_model(family)
     validate_model_config(name, mc)
     labels = read_geomodel_labels(mc.labels)  # one label per line
     try:
@@ -353,6 +366,46 @@ def _calibration_batches_from_audio(path: Path, sample_rate: int,
     return batches
 
 
+def resolve_mesh(options: AnalyzeOptions, devices: list,
+                 actual_backend: str) -> Optional[list]:
+    """The replica devices of a data-parallel run, or None for one device.
+
+    Shards the segment batch over every device of the actual backend by
+    default (``select_backend`` lists only this process's devices, so in a
+    joined pod each host shards over its own and the pod divides files
+    through the lock files). ``options.devices=1`` or ``BIRDA_NO_SHARD``
+    disables sharding; ``options.devices=N`` caps the replicas at N. The
+    CPU shards only on an explicit ``--devices N``.
+    """
+    import os
+
+    if os.environ.get("BIRDA_NO_SHARD"):
+        if options.devices is not None and options.devices > 1:
+            logger.warning("BIRDA_NO_SHARD is set; ignoring --devices %d",
+                           options.devices)
+        logger.info("batch sharding disabled by BIRDA_NO_SHARD")
+        return None
+    local = list(devices)
+    if options.devices is None and actual_backend == "cpu":
+        return None
+    if options.devices is not None:
+        if options.devices < 1:
+            raise ConfigValidation(
+                f"--devices must be >= 1 (got {options.devices})")
+        if options.devices > len(local):
+            raise ConfigValidation(
+                f"--devices {options.devices} requested but only "
+                f"{len(local)} local {actual_backend} device(s) are "
+                "available")
+        local = local[:options.devices]
+    if len(local) <= 1:
+        return None
+    logger.info(
+        "data parallelism: batch sharded over %d %s devices (disable "
+        "with --devices 1 or BIRDA_NO_SHARD=1)", len(local), actual_backend)
+    return local
+
+
 def resolve_device(options: AnalyzeOptions, config: Config) -> str:
     """First set device flag wins, else the config. ``gpu`` is an explicit
     CUDA request here (in the JAX package it is an alias for auto)."""
@@ -448,13 +501,6 @@ def build_range_filter_data(
     )
 
 
-def _refuse_unported(options: AnalyzeOptions) -> None:
-    if options.jobs > 1:
-        raise _not_yet_ported("--jobs above 1")
-    if options.devices is not None and options.devices > 1:
-        raise _not_yet_ported("--devices above 1")
-
-
 def _bat_classifier(options: AnalyzeOptions, config: Config):
     """The bat two-stage head of ``--bat``, on the run's device."""
     from .config.bat import BatConfig, BatRegion
@@ -529,11 +575,26 @@ def _range_filter_request(options: AnalyzeOptions, config: Config,
 def analyze_files(options: AnalyzeOptions, config: Config,
                   reporter=None) -> int:
     """Full analyze flow; returns a process exit code."""
+    # Multi-host pod membership (BIRDA_COORDINATOR env contract) comes
+    # before any device use; a no-op on a single host.
+    from .parallel.mesh import initialize_multihost
+
+    if initialize_multihost():
+        logger.info(
+            "pod joined: files divide across hosts via lock files; each "
+            "host shards batches over its local devices"
+        )
+
+    # --stdout streams one file's detections; concurrent workers would
+    # interleave the stream, so it also forces jobs=1.
     if options.stdout_mode and len(options.inputs) != 1:
         raise ConfigValidation("--stdout requires exactly one input file")
+    if options.stdout_mode and options.jobs > 1:
+        logger.warning("--stdout streams sequentially; ignoring --jobs %d",
+                       options.jobs)
+        options.jobs = 1
 
     mc, model_name = resolve_model_config(options, config)
-    _refuse_unported(options)
     custom_classifier = (_bat_classifier(options, config)
                          if options.bat is not None else None)
 
@@ -549,6 +610,10 @@ def analyze_files(options: AnalyzeOptions, config: Config,
         options, config, mc)
 
     device = resolve_device(options, config)
+    from .inference.backend import select_backend
+
+    backend_devices, backend_status = select_backend(device)
+    mesh = resolve_mesh(options, backend_devices, backend_status.actual)
     model = load_model_graph(mc, model_name, precision=options.precision,
                              device=device,
                              calibration_audio=options.calibration_audio)
@@ -599,6 +664,7 @@ def analyze_files(options: AnalyzeOptions, config: Config,
         range_filter_data=range_filter_data,
         species_list=species_list,
         want_embeddings=custom_classifier is not None,
+        mesh=mesh,
     )
 
     batch_size = (
@@ -608,17 +674,30 @@ def analyze_files(options: AnalyzeOptions, config: Config,
         else determine_default_batch_size(
             mc.model_type, classifier.backend_status.actual)
     )
+    if mesh is not None:
+        from .parallel.mesh import pad_to_multiple
+
+        padded = pad_to_multiple(batch_size, mesh)
+        if padded != batch_size:
+            logger.info(
+                "batch size %d padded to %d (multiple of the %d-device mesh)",
+                batch_size, padded, len(mesh))
+            batch_size = padded
     overlap = (options.overlap if options.overlap is not None
                else config.defaults.overlap)
     formats = options.formats or config.defaults.formats
 
     if reporter is not None:
+        sharding_info = None
+        if mesh is not None:
+            sharding_info = {"devices": len(mesh), "axis": "data",
+                             "backend": backend_status.actual}
         reporter.pipeline_started(
             len(files), model_name, min_confidence,
             classifier.backend_status.to_json_dict(),
             classifier.range_filter_info(),
             precision=model.precision_info,
-            sharding=None,
+            sharding=sharding_info,
         )
 
     # Warm the steady-state runner up front so the first real file does not
@@ -686,14 +765,46 @@ def process_all_files(
     model_name, min_confidence, custom_classifier, reporter,
     range_request=None, bsg_processor=None, bsg_params=None,
 ) -> RunStats:
+    """The per-file loop: in order, or with ``--jobs N`` (more than one
+    file, no ``--fail-fast``) on N worker threads over the one classifier.
+
+    Per-file semantics (stale-lock reclaim, skip check, lock, outputs,
+    error isolation) are the same either way: the lock layer arbitrates
+    concurrent workers exactly as it does between processes on a shared
+    filesystem. Under ``--jobs`` reporter events may interleave across
+    files (each carries its path) and no progress bars are drawn.
+    """
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
     stats = RunStats()
+    stats_lock = threading.Lock()
     range_filter_params = None
     if range_request is not None:
         range_filter_params = (range_request.latitude,
                                range_request.longitude, range_request.week)
     streamed = (options.stdout_mode or options.dual_output_mode
                 or options.stream_detections)
-    for index, input_path in enumerate(files):
+    parallel = options.jobs > 1 and len(files) > 1 and not options.fail_fast
+
+    def count(**deltas):
+        with stats_lock:
+            for name, delta in deltas.items():
+                setattr(stats, name, getattr(stats, name) + delta)
+
+    def skipped(input_path, status):
+        count(files_skipped=1)
+        if reporter is not None:
+            reporter.file_skipped(str(input_path), status)
+
+    def failed(input_path, code_message):
+        count(files_failed=1)
+        if reporter is not None:
+            reporter.file_completed_failure(
+                str(input_path), PROCESSING_ERROR_CODE, code_message)
+
+    def work(item):
+        index, input_path = item
         output_dir = output_dir_for(input_path, options.output_dir)
 
         # Stale-lock reclamation before the skip check.
@@ -715,13 +826,10 @@ def process_all_files(
             stdout_mode=options.stdout_mode or options.stream_detections,
         )
         if check != ProcessCheck.PROCESS:
-            stats.files_skipped += 1
-            if reporter is not None:
-                reporter.file_skipped(
-                    str(input_path),
+            skipped(input_path,
                     FileStatus.LOCKED if check == ProcessCheck.SKIP_LOCKED
                     else FileStatus.SKIPPED)
-            continue
+            return
 
         pcfg = ProcessingConfig(
             input_path=input_path,
@@ -735,7 +843,8 @@ def process_all_files(
             model_name=model_name,
             range_filter_params=range_filter_params,
             reporter=reporter if streamed else None,
-            progress_reporter=reporter,
+            # Interleaved progress bars are worse than none.
+            progress_reporter=None if parallel else reporter,
             dual_output_mode=options.dual_output_mode,
             custom_classifier=custom_classifier,
             bat_mode=options.bat is not None,
@@ -750,40 +859,48 @@ def process_all_files(
             result = process_file(classifier, pcfg)
         except FileLocked:
             # Another worker took the file between the check and the lock.
-            stats.files_skipped += 1
-            if reporter is not None:
-                reporter.file_skipped(str(input_path), FileStatus.LOCKED)
-            continue
+            skipped(input_path, FileStatus.LOCKED)
+            return
         except BirdaError as e:
-            stats.files_failed += 1
             logger.error("Failed to process %s: %s", input_path, e)
-            if reporter is not None:
-                reporter.file_completed_failure(
-                    str(input_path), PROCESSING_ERROR_CODE, str(e))
+            failed(input_path, str(e))
             if options.fail_fast:
                 raise
-            continue
+            return
         except Exception as e:  # noqa: BLE001 — per-file isolation
-            stats.files_failed += 1
             logger.error("Failed to process %s: %s: %s", input_path,
                          type(e).__name__, e)
             logger.debug("unhandled per-file exception", exc_info=True)
-            if reporter is not None:
-                reporter.file_completed_failure(
-                    str(input_path), PROCESSING_ERROR_CODE,
-                    f"{type(e).__name__}: {e}")
+            failed(input_path, f"{type(e).__name__}: {e}")
             if options.fail_fast:
                 raise
-            continue
+            return
 
-        stats.files_processed += 1
-        stats.total_detections += result.detections
-        stats.total_segments += result.segments
-        stats.total_audio_secs += result.audio_duration_secs
+        count(files_processed=1, total_detections=result.detections,
+              total_segments=result.segments,
+              total_audio_secs=result.audio_duration_secs)
         if reporter is not None:
             reporter.file_completed_success(
                 str(input_path), result.detections,
                 int((time.monotonic() - start) * 1000))
+
+    if not parallel:
+        for item in enumerate(files):
+            work(item)
+        return stats
+    # Not `with pool: pool.map(...)`: that submits every file up front and
+    # shuts down without cancelling, so a Ctrl+C (SystemExit from the SIGINT
+    # handler, which has already released the live locks) would go on
+    # through the whole queue — now-unlocked files a second process may
+    # pick up. cancel_futures drops the files not yet started; those in
+    # flight finish.
+    pool = ThreadPoolExecutor(max_workers=options.jobs)
+    try:
+        futures = [pool.submit(work, item) for item in enumerate(files)]
+        for f in futures:
+            f.result()
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
     return stats
 
 

@@ -4,11 +4,11 @@
 The same two-stage host pipeline per file (a decode thread streams
 overlapped windows into a bounded queue; the consumer assembles chunks for
 the chunk runner, keeps one chunk in flight on the card while the host
-decodes the next, thresholds, sorts and writes), with three differences:
-the classifier is :class:`birda_tpu_torch.inference.classifier.BirdClassifier`,
-there is no multi-device branch, and the output writers are imported only
-for the formats a run asks for (a run without parquet never imports
-pyarrow).
+decodes the next, thresholds, sorts and writes), with two differences:
+the classifier is :class:`birda_tpu_torch.inference.classifier.BirdClassifier`
+(its ``mesh`` is a list of replica devices), and the output writers are
+imported only for the formats a run asks for (a run without parquet never
+imports pyarrow).
 """
 
 from __future__ import annotations
@@ -175,6 +175,10 @@ def process_file(classifier: BirdClassifier, config: ProcessingConfig) -> Proces
             1 << (effective_batch - 1).bit_length() if effective_batch > 1 else 1,
             config.batch_size,
         )
+        if classifier.mesh is not None:
+            from ..parallel.mesh import pad_to_multiple
+
+            effective_batch = pad_to_multiple(effective_batch, classifier.mesh)
 
         # Window step at the model rate drives the chunked device path: the
         # host ships each audio sample once (int16) and the device does the

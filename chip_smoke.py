@@ -28,8 +28,21 @@ slicing on Perch v2 (softmax, renormalized) and on v2.4 (sigmoid), and
 ``api.species`` on the fixture geomodel, each held against a float64
 evaluation on the host.
 
+Then the parallel modes and the native family: ``main_path_jobs`` (v2.4
+bf16 with ``jobs=2`` over the same two recordings: the sequential run's
+detections and ``fused_logmel`` launches), ``sharded_step`` (the v2.4 bf16
+chunk runner at batch 32 sharded over two replicas on ``cuda:0``, the
+double of a second card: each replica launches ``fused_logmel`` on 16
+rows, and the gathered scores agree with the unsharded step),
+``main_path_native`` (``synthetic:full`` v2.4, the native backbone in fp32,
+over the two v2.4 recordings: no hand kernel lies on it, so neither may
+launch; one chunk against the port's CPU run of it, and ``step_native``)
+and ``main_path_v30`` (full-scale BirdNET v3.0 in bf16 over one generated
+60 s recording at 32 kHz, through ``fused_logmel``; bf16 against fp32 on
+one chunk, and ``step_v30``).
+
 Each main path runs with the launch counts set to 0 just before it and read
-just after, and must have launched its kernel. Each model's bf16, int8 and
+just after, and must have launched its kernel (the native path: none). Each model's bf16, int8 and
 (v2.4) mixed routes are compared with its fp32 route on one chunk, and each
 is timed and profiled on that chunk. The ``int8_ops`` phase holds the exact
 integer routes of the int8 convs and matmuls (``torch._int_mm`` and the exact
@@ -510,7 +523,8 @@ def main_path(phase, kernel, wavs, onnx_path, labels_path, model_type,
               precision="bf16", device="gpu", **kw):
     """``analyze`` at ``precision`` and batch 32 on the card (``device``
     ``gpu`` or ``auto``), with the launch counts set to 0 just before and
-    read just after; checks the run went through ``kernel`` and produced
+    read just after; checks the run went through ``kernel`` (``None``: a
+    path on which no hand kernel lies, so none may launch) and produced
     finite confidences in [0, 1] for every file. Returns the launch counts
     and the result."""
     import numpy as np
@@ -547,8 +561,13 @@ def main_path(phase, kernel, wavs, onnx_path, labels_path, model_type,
     check(result.exit_code == 0, f"{phase}: analyze exit code")
     check((result.backend or {}).get("actual") == "cuda",
           f"{phase}: backend {result.backend}")
-    check(launches.get(kernel, 0) > 0,
-          f"{phase}: the main path never launched {kernel}")
+    if kernel is None:
+        check(not any(launches.values()),
+              f"{phase}: a hand kernel launched on a path without one: "
+              f"{launches}")
+    else:
+        check(launches.get(kernel, 0) > 0,
+              f"{phase}: the main path never launched {kernel}")
     check(len(result.files) == len(wavs) and all(
         f.ok and f.detections for f in result.files),
           f"{phase}: detections for every file")
@@ -649,12 +668,8 @@ def bf16_vs_fp32(phase, family, onnx_path, labels, wav, relative: bool,
         model = onnx_model(onnx_path, contract, labels, dtype=dtype)
         clf = BirdClassifier(model, device="cuda", min_confidence=0.0,
                              top_k=n)
-        rows = clf.chunk_runner(BATCH, seg).predict_chunk(chunk, BATCH)
-        full = np.zeros((BATCH, n), np.float64)
-        for r, res in enumerate(rows):
-            for p in res.predictions:
-                full[r, p.index] = p.confidence
-        scores[precision] = full
+        scores[precision] = full_scores(
+            clf.chunk_runner(BATCH, seg).predict_chunk(chunk, BATCH), n)
         if dtype is not None:
             steady_step(step_phase, BirdClassifier(
                 model, device="cuda", min_confidence=0.0, top_k=5), chunk)
@@ -703,12 +718,8 @@ def quantized_vs_fp32(phase, family, onnx_path, labels, chunk, fp32,
     load_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     clf = BirdClassifier(model, device="cuda", min_confidence=0.0, top_k=n)
-    rows = clf.chunk_runner(BATCH, contract.sample_count).predict_chunk(
-        chunk, BATCH)
-    got = np.zeros((BATCH, n), np.float64)
-    for r, res in enumerate(rows):
-        for p in res.predictions:
-            got[r, p.index] = p.confidence
+    got = full_scores(clf.chunk_runner(BATCH, contract.sample_count)
+                      .predict_chunk(chunk, BATCH), n)
     drift = float(np.abs(got - fp32).max())
     top = float(fp32.max())
     measured = drift / top if relative else drift
@@ -1042,6 +1053,209 @@ def species_phase(geo):
           "species: the card's list differs from the host's")
 
 
+def full_scores(rows, n):
+    """A chunk's results as a ``[rows, n]`` score matrix (zeros where a
+    class was not returned)."""
+    import numpy as np
+
+    out = np.zeros((len(rows), n), np.float64)
+    for r, res in enumerate(rows):
+        for p in res.predictions:
+            out[r, p.index] = p.confidence
+    return out
+
+
+def agreement(got, want) -> dict:
+    """Largest score error, and the top-1 and top-5 agreement of two
+    ``[rows, n]`` score matrices."""
+    import numpy as np
+
+    top5 = [len(set(np.argsort(-g)[:5]) & set(np.argsort(-w)[:5])) / 5
+            for g, w in zip(got, want)]
+    return {"max_abs_err": float(np.abs(got - want).max()),
+            "top1_agreement": float(np.mean(got.argmax(1) == want.argmax(1))),
+            "top5_agreement": float(np.mean(top5))}
+
+
+def native_phase(wavs):
+    """``analyze`` on ``synthetic:full`` BirdNET v2.4, the native backbone
+    in fp32 with weights synthesized from the seed, on the card over the
+    v2.4 recordings. Neither hand kernel lies on this path: both must have
+    launched 0 times. Then one 32-row chunk on the card against the port's
+    CPU run of the same chunk (fp32 on both), within
+    ``SCORE_DRIFT_BOUND``, and the steady step on the card
+    (``step_native``). Returns the launch counts."""
+    import torch
+
+    from birda_tpu_torch.inference.classifier import BirdClassifier
+    from birda_tpu_torch.models.contracts import ModelFamily
+    from birda_tpu_torch.models.zoo import native_model
+
+    launches, result = main_path("main_path_native", None, wavs,
+                                 "synthetic:full", "synthetic:full",
+                                 "birdnet-v24", precision="fp32")
+    check(result.precision is None, f"main_path_native: precision "
+          f"{result.precision}")
+    model = native_model(ModelFamily.BIRDNET_V24)
+    n, seg = model.num_classes, model.config.sample_count
+    chunk = read_wav(wavs[0])[:BATCH * seg]
+    scores, seconds = {}, {}
+    for where in ("cuda", "cpu"):
+        clf = BirdClassifier(model, device=where, min_confidence=0.0,
+                             top_k=n)
+        runner = clf.chunk_runner(BATCH, seg)
+        check(runner._mel_cfg is not None,
+              "main_path_native: the chunk runner is off the mel path")
+        t0 = time.perf_counter()
+        scores[where] = full_scores(runner.predict_chunk(chunk, BATCH), n)
+        seconds[where] = time.perf_counter() - t0
+    rec = {"phase": "native_vs_cpu", "rows": BATCH, "classes": n,
+           **agreement(scores["cuda"], scores["cpu"]),
+           "bound": SCORE_DRIFT_BOUND,
+           "max_score": float(scores["cpu"].max()),
+           "first_chunk_s": seconds}
+    emit(rec)
+    check(rec["max_abs_err"] <= SCORE_DRIFT_BOUND,
+          f"native_vs_cpu: card against CPU {rec['max_abs_err']}")
+    steady_step("step_native", BirdClassifier(
+        model, device="cuda", min_confidence=0.0, top_k=5), chunk)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def jobs_phase(wavs, onnx24, labels24_path, sequential, seq_launches):
+    """``analyze`` in bf16 with ``jobs=2`` over the v2.4 recordings: the
+    same detections as the sequential ``main_path`` run and the same
+    ``fused_logmel`` launches. Its pipeline timer stands beside that of a
+    sequential run made just before it (the first ``main_path`` run of the
+    process also pays the card's first-use costs); both are the host
+    clock. Returns the launch counts."""
+    _, warm = main_path("main_path_sequential_warm", "fused_logmel", wavs,
+                        onnx24, labels24_path, "birdnet-v24")
+    launches, result = main_path("main_path_jobs", "fused_logmel", wavs,
+                                 onnx24, labels24_path, "birdnet-v24",
+                                 jobs=2)
+
+    def by_file(res):
+        return {f.path.name: [(d.start_time, d.end_time, d.scientific_name,
+                               d.confidence) for d in f.detections]
+                for f in res.files}
+
+    got, want = by_file(result), by_file(sequential)
+    same_rows = got.keys() == want.keys() and all(
+        [r[:3] for r in got[k]] == [r[:3] for r in want[k]] for k in want)
+    diff = max((abs(a[3] - b[3]) for k in want if same_rows
+                for a, b in zip(got[k], want[k])), default=float("inf"))
+    emit({"phase": "jobs_vs_sequential", "jobs": 2,
+          "same_detections": same_rows, "max_confidence_diff": diff,
+          "identical": got == want,
+          "launches": launches, "launches_sequential": seq_launches,
+          "pipeline_ms_jobs": (result.summary or {}).get("duration_ms"),
+          "pipeline_ms_sequential":
+              (warm.summary or {}).get("duration_ms"),
+          "pipeline_ms_first_sequential":
+              (sequential.summary or {}).get("duration_ms"),
+          "clock": "host"})
+    check(same_rows and diff <= 1e-6,
+          f"main_path_jobs: detections differ from the sequential run "
+          f"(max confidence difference {diff})")
+    check(launches.get("fused_logmel") == seq_launches.get("fused_logmel"),
+          f"main_path_jobs: launches {launches} against {seq_launches}")
+    return launches
+
+
+def sharded_phase(onnx24, labels24, chunk, dev):
+    """``shard_data_parallel`` over two replicas on one card, the double
+    of a second card: the v2.4 bf16 chunk runner at batch 32 with
+    ``mesh=[cuda:0, cuda:0]``, each replica launching ``fused_logmel`` on
+    its 16 rows, against the unsharded runner on the same chunk (gathered
+    scores within ``SCORE_DRIFT_BOUND``, top-1/top-5 agreement). The
+    launch counts are read over the sharded step alone; the batch of each
+    launch is read by a wrapper around the kernel's wrapper. Returns the
+    sharded step's launch counts."""
+    import torch
+
+    from birda_tpu_torch.inference.classifier import BirdClassifier
+    from birda_tpu_torch.models.contracts import ModelFamily, contract_for
+    from birda_tpu_torch.models.zoo import onnx_model
+    from birda_tpu_torch.ops import stft_conv
+
+    contract = contract_for(ModelFamily.BIRDNET_V24)
+    n, seg = contract.num_classes, contract.sample_count
+    model = onnx_model(onnx24, contract, labels24, dtype=torch.bfloat16)
+    kernel = stft_conv.fused_logmel
+    batches = []
+
+    def recorded(x, *args, **kw):
+        batches.append(int(x.shape[0]))
+        return kernel(x, *args, **kw)
+
+    scores, launches, rows_per_launch, step_ms = {}, {}, {}, {}
+    for name, mesh in (("unsharded", None), ("sharded", [dev, dev])):
+        clf = BirdClassifier(model, device="cuda", min_confidence=0.0,
+                             top_k=n, mesh=mesh)
+        runner = clf.chunk_runner(BATCH, seg)
+        runner.ensure_warm()
+        torch.cuda.synchronize()
+        stft_conv.LAUNCHES.clear()
+        batches.clear()
+        stft_conv.fused_logmel = recorded
+        try:
+            rows = runner.predict_chunk(chunk, BATCH)
+        finally:
+            stft_conv.fused_logmel = kernel
+        launches[name] = dict(stft_conv.LAUNCHES)
+        rows_per_launch[name] = list(batches)
+        scores[name] = full_scores(rows, n)
+        # Timed at top 5: decoding every class of 32 rows on the host
+        # would outweigh the step.
+        runner = BirdClassifier(model, device="cuda", min_confidence=0.0,
+                                top_k=5, mesh=mesh).chunk_runner(BATCH, seg)
+        runner.predict_chunk(chunk, BATCH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STEP_ITERS):
+            runner.predict_chunk(chunk, BATCH)
+        step_ms[name] = (time.perf_counter() - t0) / STEP_ITERS * 1e3
+    rec = {"phase": "sharded_step", "replicas": [str(dev), str(dev)],
+           "batch": BATCH, "classes": n,
+           **agreement(scores["sharded"], scores["unsharded"]),
+           "bound": SCORE_DRIFT_BOUND, "launches": launches,
+           "fused_logmel_rows_per_launch": rows_per_launch,
+           "chunk_step_ms_host_clock": step_ms}
+    emit(rec)
+    check(rows_per_launch["sharded"] == [BATCH // 2] * 2
+          and launches["sharded"].get("fused_logmel") == 2,
+          f"sharded_step: launches {launches} rows {rows_per_launch}")
+    check(rec["max_abs_err"] <= SCORE_DRIFT_BOUND,
+          f"sharded_step: against the unsharded step {rec['max_abs_err']}")
+    return launches["sharded"]
+
+
+def v30_phase(tmp: Path):
+    """Full-scale BirdNET v3.0 (``BIRDNET_V30_SPEC``, random weights from
+    ``SEED``): ``analyze`` in bf16 over one generated 60 s recording at
+    32 kHz, through ``fused_logmel``; then bf16 against fp32 on one 32-row
+    chunk of a 160 s recording, and the bf16 step (``step_v30``). Returns
+    the launch counts."""
+    from birda_tpu_torch.models.contracts import ModelFamily
+    from birda_tpu_torch.onnx import fullscale
+
+    graph, onnx30, labels30_path, labels30 = write_graph(
+        fullscale.BIRDNET_V30_SPEC, tmp)
+    del graph
+    wav = tmp / "v30_32k.wav"
+    write_wav(wav, recording(32_000, 60.0, SEED + 50), 32_000)
+    launches, _ = main_path("main_path_v30", "fused_logmel", [wav], onnx30,
+                            labels30_path, "birdnet-v30")
+    long_wav = tmp / "v30_32k_160s.wav"
+    write_wav(long_wav, recording(32_000, 160.0, SEED + 51), 32_000)
+    bf16_vs_fp32("bf16_vs_fp32_v30", ModelFamily.BIRDNET_V30, onnx30,
+                 labels30, long_wav, relative=False, step_phase="step_v30")
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, case, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1119,11 +1333,15 @@ def main() -> int:
         logmel = logmel_kernel_phase(w24, fb24, node.attr("hop"),
                                      node.attr("eps"), dev)
         del fn, graph, w24, fb24
-        launches24, _ = main_path("main_path", "fused_logmel", wavs24,
-                                  onnx24, labels24_path, "birdnet-v24")
+        launches24, result24 = main_path("main_path", "fused_logmel",
+                                         wavs24, onnx24, labels24_path,
+                                         "birdnet-v24")
         chunk24, fp32_24 = bf16_vs_fp32(
             "bf16_vs_fp32", ModelFamily.BIRDNET_V24, onnx24, labels24,
             wavs24[0], relative=False, step_phase="step")
+        launches_jobs = jobs_phase(wavs24, onnx24, labels24_path, result24,
+                                   launches24)
+        launches_sharded = sharded_phase(onnx24, labels24, chunk24, dev)
         quant24 = quantized_main_paths("", "fused_logmel", wavs24, onnx24,
                                        labels24_path, "birdnet-v24",
                                        calib_log, mixed=True)
@@ -1134,6 +1352,10 @@ def main() -> int:
                               step_phase=f"step_{precision}")
         convs24, mms24 = int8_graph_report(
             "v24", onnx24, fullscale.BIRDNET_V24_SPEC.sample_count)
+
+        # -- 2b. the native family (synthetic:full) and BirdNET v3.0 -------
+        launches_native = native_phase(wavs24)
+        launches_v30 = v30_phase(tmp)
 
         # -- 3. Perch v2: conv1d_stft --------------------------------------
         conv = conv1d_kernel_phase(dev)
@@ -1198,7 +1420,12 @@ def main() -> int:
                      launches_bat=launches_bat.get("fused_logmel", 0),
                      launches_range=launches_range.get("fused_logmel", 0),
                      launches_region=launches_region24.get("fused_logmel",
-                                                           0)),
+                                                           0),
+                     launches_native=launches_native.get("fused_logmel", 0),
+                     launches_jobs=launches_jobs.get("fused_logmel", 0),
+                     launches_sharded=launches_sharded.get("fused_logmel",
+                                                           0),
+                     launches_v30=launches_v30.get("fused_logmel", 0)),
         kernel_entry("conv1d_stft", "birda_tpu_torch/csrc/conv1d_stft.cu",
                      "birda_tpu/ops/stft_conv.py:121",
                      launches_perch.get("conv1d_stft", 0),
@@ -1207,7 +1434,11 @@ def main() -> int:
                      launches_bat=launches_bat.get("conv1d_stft", 0),
                      launches_range=launches_range.get("conv1d_stft", 0),
                      launches_region=launches_region_perch.get("conv1d_stft",
-                                                               0)),
+                                                               0),
+                     launches_native=launches_native.get("conv1d_stft", 0),
+                     launches_jobs=launches_jobs.get("conv1d_stft", 0),
+                     launches_sharded=launches_sharded.get("conv1d_stft", 0),
+                     launches_v30=launches_v30.get("conv1d_stft", 0)),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

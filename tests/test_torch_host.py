@@ -61,6 +61,17 @@ def test_import_scan_covers_the_int8_modules():
         assert rel in PORT_SOURCES
 
 
+def test_import_scan_covers_the_native_and_parallel_modules():
+    for rel in ("birda_tpu_torch/ops/melspec.py",
+                "birda_tpu_torch/models/backbone.py",
+                "birda_tpu_torch/models/zoo.py",
+                "birda_tpu_torch/parallel/__init__.py",
+                "birda_tpu_torch/parallel/mesh.py",
+                "birda_tpu_torch/parallel/sharding.py",
+                "birda_tpu_torch/locking/file_lock.py"):
+        assert rel in PORT_SOURCES
+
+
 def test_import_scan_sees_imports_inside_functions(tmp_path):
     src = tmp_path / "m.py"
     src.write_text("def f():\n    from birda_tpu.errors import X\n"
@@ -353,11 +364,13 @@ def test_port_modules_are_not_the_jax_modules():
 # -- the secondary heads' host code ---------------------------------------------
 
 #: Modules (and the registry's data file) the port copies as they are; only
-#: the registry loader names its own package, for its resource files.
+#: the registry loader names its own package, for its resource files. The
+#: lock module's relative import of ``process_index`` resolves to the port's
+#: own ``parallel/mesh.py``.
 HEAD_COPIES = ["config/bat.py", "config/geomodel.py", "cli/species.py",
                "registry/__init__.py", "registry/schema.py",
                "registry/loader.py", "registry/installer.py",
-               "registry/registry.json"]
+               "registry/registry.json", "locking/file_lock.py"]
 
 
 def test_import_scan_covers_the_heads_modules():

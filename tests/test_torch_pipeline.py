@@ -208,7 +208,8 @@ def test_runs_without_jax_flax_pyarrow_or_click(setup, home):
     """The port runs where neither jax, flax, pyarrow, click nor the JAX
     package itself can be imported: tiny v2.4 and tiny Perch v2 (scores
     below 1e-3 with random weights, so a floor of 1e-6 and the top 5), in
-    fp32 and bf16, and tiny v2.4 in int8 and mixed (calibrated here); and
+    fp32 and bf16, and tiny v2.4 in int8 and mixed (calibrated here); the
+    native ``synthetic:tiny`` model with ``jobs=2``; and
     the CLI on tiny v2.4 with ``--bat``, ``--lat/--lon/--week`` (the
     fixture geomodel) and ``--region-labels``."""
     from birda_tpu_torch.onnx.encode import (make_fixture_geomodel, model,
@@ -272,6 +273,9 @@ runs += [analyze({[str(w) for w in wavs]!r}, model_path=models[0][0],
                  labels_path=models[0][1], model_type="birdnet-v24",
                  min_confidence=0.1, device="cpu", precision=p)
          for p in ("int8", "mixed")]
+runs.append(analyze({[str(w) for w in wavs]!r}, model_path="synthetic:tiny",
+                    labels_path="synthetic:tiny", model_type="birdnet-v24",
+                    min_confidence=0.01, device="cpu", jobs=2))
 from birda_tpu_torch.cli.main import main
 cli = [main(["analyze", *a, *{base!r}]) for a in {cli_runs!r}]
 loaded = sorted(m for m, v in sys.modules.items() if v is not None
@@ -285,10 +289,10 @@ print(json.dumps({{"exit": [r.exit_code for r in runs], "cli": cli,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     out = json.loads(r.stdout.strip().splitlines()[-1])
-    assert out["exit"] == [0] * 6
+    assert out["exit"] == [0] * 7
     assert out["cli"] == [0] * 3
     assert out["loaded"] == []
-    assert len(out["detections"]) == 12 and all(out["detections"])
+    assert len(out["detections"]) == 14 and all(out["detections"])
     for name, species in (("cli-bat", "Bat sp"), ("cli-range", "Species sp"),
                           ("cli-region", "Species sp")):
         (table,) = (home / name).glob("*.csv")
@@ -311,14 +315,38 @@ def test_chip_smoke_refuses_without_card_or_checkout(tmp_path):
 @pytest.mark.parametrize("kwargs,what", [
     pytest.param({"devices": 2}, "--devices above 1", id="devices"),
     pytest.param({"jobs": 2}, "--jobs above 1", id="jobs"),
-    pytest.param({"model_path": "synthetic:tiny"}, "synthetic:",
+    pytest.param({"model_path": "synthetic:tiny",
+                  "labels_path": "synthetic:tiny"}, "synthetic:",
                  id="synthetic"),
 ])
-def test_unported_options_are_refused(setup, kwargs, what):
-    import birda_tpu_torch.api as torch_api
-    from birda_tpu_torch.errors import ClassifierBuild
+def test_unported_options_are_refused(setup, kwargs, what, monkeypatch):
+    """What earlier slices of the port refused with a typed "not yet
+    ported" (``what``) now runs and gives the JAX package's detections:
+    ``--devices 2`` over two CPU replicas (the backend selector doubled, as
+    the JAX suite doubles its CPU platform), ``--jobs 2`` over both files,
+    and the native ``synthetic:tiny`` model."""
+    import birda_tpu.api as jax_api
 
+    import birda_tpu_torch.api as torch_api
+    from birda_tpu_torch.inference import backend, classifier
+
+    real = backend.select_backend
+
+    def two_replicas(requested="auto"):
+        devices, status = real(requested)
+        return devices * 2, status
+
+    monkeypatch.setattr(backend, "select_backend", two_replicas)
+    monkeypatch.setattr(classifier, "select_backend", two_replicas)
     wavs, kw = setup
-    with pytest.raises(ClassifierBuild, match="not yet ported") as e:
-        torch_api.analyze(wavs, **{**kw, **kwargs})
-    assert what in str(e.value)
+    kw = {**kw, **kwargs}
+    got = torch_api.analyze(wavs, **kw)
+    assert got.exit_code == 0, what
+    want = _rows(jax_api.analyze(wavs, **kw))
+    if "model_path" not in kwargs:
+        _assert_same_detections(_rows(got), want)
+    else:  # sigmoid scores near 0.5: compare each window's top scores
+        for name, rows in _rows(got).items():
+            assert [r[:2] for r in rows] == [r[:2] for r in want[name]]
+            assert max(abs(a[4] - b[4]) for a, b in
+                       zip(rows, want[name])) <= CONF_BOUND
