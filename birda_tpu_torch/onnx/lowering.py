@@ -4,8 +4,14 @@ A parsed :class:`~birda_tpu_torch.onnx.proto.Model` runs node by node over an
 environment of values, the same design as the JAX evaluator:
 
 - Host constants stay numpy. A node whose inputs are all host values is
-  folded on the host with numpy (shape, slice and reshape parameters stay
-  plain integers), exactly as the JAX evaluator folds them.
+  folded on the host (numpy where the JAX evaluator uses numpy, a CPU
+  tensor brought back to numpy where it uses jax.numpy), so shape, slice and
+  reshape parameters stay plain integers. A node whose inputs are all
+  constants folds once and keeps its value, as a jit trace folds it once.
+  Every shape parameter (a Reshape's shape, a Pad's pads, a TopK's ``k``,
+  Resize's scales and sizes, ...) must be a host value: a device tensor
+  there is refused, never read (a read would be a device sync per step, and
+  the JAX evaluator's trace refuses it too).
 - Device values are ``torch.Tensor``s on the device the graph input lives
   on. Host operands of a device op are copied to that device once and
   cached.
@@ -16,23 +22,28 @@ environment of values, the same design as the JAX evaluator:
   JAX route's HIGHEST matmul precision).
 - Elementwise ops promote like ``jax.numpy``: a 0-d float32 constant
   promotes a bf16 tensor to float32 (``torch.promote_types`` on both
-  dtypes), Python scalars stay weak.
-- Integer operands of Conv, MatMul and Gemm (the int8 path of
-  :mod:`birda_tpu_torch.onnx.quantize`) accumulate exactly in int32, the
-  JAX route's ``preferred_element_type=int32``: :func:`int_conv` and
-  :func:`int_matmul` pick a route by static shape (``torch._int_mm`` on the
-  card, an fp32 product only where every partial sum is an exact integer,
-  float64 products on the CPU) and never round.
+  dtypes), Python scalars stay weak. jax holds no 64-bit type on the device,
+  so a device Cast to int64 or float64 gives int32 or float32.
+- Integer products accumulate exactly in int32, the JAX route's
+  ``preferred_element_type=int32``. int8 operands (the int8 path of
+  :mod:`birda_tpu_torch.onnx.quantize`) take :func:`int_conv` and
+  :func:`int_matmul`, which pick a route by static shape (``torch._int_mm``
+  on the card, an fp32 product only where every partial sum is an exact
+  integer, float64 products on the CPU). Wider integers (the zero-point
+  shifted int32 operands of QLinearConv, QLinearMatMul, ConvInteger and
+  MatMulInteger, up to 255 in magnitude) take float64 products on every
+  device (:func:`wide_int_conv`, :func:`wide_int_matmul`). None rounds.
 
-The op set is what the full-scale BirdNET v2.4 / v3.0 and Perch v2 graphs
-(:mod:`birda_tpu_torch.onnx.fullscale`) emit, plus the fused spectrogram
-front-end ``BirdaFusedMelFrontend`` that :func:`maybe_fuse_frontend` splices
-in for bf16 compute. In bf16 two hand-written CUDA kernels carry the
-front-ends: the fused node runs ``ops/stft_conv.py::fused_logmel``, and a
-single-channel long-kernel Conv1d the fusion pass did not take (the unfused
-Conv1d-STFT, Perch v2's framing conv) runs ``ops/stft_conv.py::conv1d_stft``.
-A graph outside the op set fails at load with the full list
-(``preflight_or_raise``).
+The op set is the JAX evaluator's from the elementwise ops through the
+quantized and signal ops (everything the full-scale BirdNET v2.4 / v3.0 and
+Perch v2 graphs emit, their QDQ forms, and the common glue of other
+exports), plus the fused spectrogram front-end ``BirdaFusedMelFrontend``
+that :func:`maybe_fuse_frontend` splices in for bf16 compute. In bf16 two
+hand-written CUDA kernels carry the front-ends: the fused node runs
+``ops/stft_conv.py::fused_logmel``, and a single-channel long-kernel Conv1d
+the fusion pass did not take (the unfused Conv1d-STFT, Perch v2's framing
+conv) runs ``ops/stft_conv.py::conv1d_stft``. A graph outside the op set
+fails at load with the full list (``preflight_or_raise``).
 """
 
 from __future__ import annotations
@@ -47,7 +58,7 @@ import torch.nn.functional as F
 
 from ..ops import stft_conv
 # The preflight reads the lowering's Constant-folding rule by this name.
-from .proto import Model, load_model
+from .proto import _NP_DTYPES, Model, load_model
 from .proto import constant_payload as _constant_payload
 
 __all__ = ["OnnxFunction", "UnsupportedOnnxOp", "lower",
@@ -116,10 +127,130 @@ def _dtype_kind(x) -> str:
 
 
 def _device_of(*xs) -> torch.device:
+    """The device of the tensor operands (the card's where one is on it);
+    the CPU when there is none, so a handler run on host values alone
+    computes there."""
+    found = None
     for x in xs:
         if isinstance(x, torch.Tensor):
-            return x.device
-    raise ValueError("no tensor operand")
+            if x.device.type != "cpu":
+                return x.device
+            found = x.device
+    return found if found is not None else torch.device("cpu")
+
+
+_NP_FROM_ONNX_DT = {
+    1: np.float32, 2: np.uint8, 3: np.int8, 4: np.uint16, 5: np.int16,
+    6: np.int32, 7: np.int64, 9: np.bool_, 10: np.float16, 11: np.float64,
+    12: np.uint32, 13: np.uint64,
+}
+
+#: The device dtype of each numpy dtype, as jax holds it with 64-bit types
+#: off: int64, uint64 and float64 take 32 bits.
+_DEVICE_DTYPE = {
+    np.dtype(np.float32): torch.float32, np.dtype(np.uint8): torch.uint8,
+    np.dtype(np.int8): torch.int8, np.dtype(np.uint16): torch.uint16,
+    np.dtype(np.int16): torch.int16, np.dtype(np.int32): torch.int32,
+    np.dtype(np.int64): torch.int32, np.dtype(np.bool_): torch.bool,
+    np.dtype(np.float16): torch.float16, np.dtype(np.float64): torch.float32,
+    np.dtype(np.uint32): torch.uint32, np.dtype(np.uint64): torch.uint32,
+}
+
+
+def _as_host(v):
+    """A handler's value for a node whose inputs were all host values: a
+    tensor it computed on the CPU comes back as numpy (bf16, which numpy
+    does not hold, stays a tensor)."""
+    if isinstance(v, torch.Tensor) and v.dtype != torch.bfloat16:
+        return v.numpy()
+    return v
+
+
+def _int_acc(dt: torch.dtype) -> torch.dtype:
+    """The dtype of a jnp sum, product or cumsum of an integer or bool
+    tensor: the default integer of its signedness, 32 bits with x64 off (as
+    the JAX evaluator's index outputs are int32)."""
+    return torch.int32 if dt == torch.bool or dt.is_signed else torch.uint32
+
+
+def _true_div(a, b):
+    """``a / b`` for a tensor and a Python scalar as IEEE division, which
+    jnp's is: torch on the card multiplies by the scalar's reciprocal,
+    one unit in the last place off."""
+    if isinstance(b, torch.Tensor) or not isinstance(a, torch.Tensor):
+        return a / b
+    dt = a.dtype if a.is_floating_point() else torch.float32
+    return a / torch.full((), b, dtype=dt, device=a.device)
+
+
+def _all_host(*xs) -> bool:
+    """Whether every present operand is a host value."""
+    return all(_is_host(x) for x in xs if x is not None)
+
+
+def _fill_value(dt: torch.dtype):
+    """jnp.take's fill value for an index out of range."""
+    if dt == torch.bool:
+        return True
+    if dt.is_floating_point or dt.is_complex:
+        return float("nan")
+    info = torch.iinfo(dt)
+    return info.min if dt.is_signed else info.max
+
+
+class _TorchMath:
+    """The jax.numpy functions the unary handlers call, on a tensor and
+    Python scalars (weak, as in jax.numpy): with it a handler reads as its
+    JAX counterpart, ``m = _math(x)`` in place of ``m = self._lib(x)``."""
+
+    exp, log, log1p, sqrt, abs = (torch.exp, torch.log, torch.log1p,
+                                  torch.sqrt, torch.abs)
+    tanh, floor, ceil, negative = torch.tanh, torch.floor, torch.ceil, \
+        torch.neg
+    sin, cos, tan, sinh, cosh = (torch.sin, torch.cos, torch.tan, torch.sinh,
+                                 torch.cosh)
+    arcsin, arccos, arctan = torch.asin, torch.acos, torch.atan
+    arcsinh, arccosh, arctanh = torch.asinh, torch.acosh, torch.atanh
+    isnan, isinf, isposinf, isneginf = (torch.isnan, torch.isinf,
+                                        torch.isposinf, torch.isneginf)
+    logical_not, zeros_like, where = (torch.logical_not, torch.zeros_like,
+                                      torch.where)
+    round = staticmethod(torch.round)
+
+    @staticmethod
+    def maximum(a, b):
+        return torch.maximum(a, b) if isinstance(b, torch.Tensor) \
+            else torch.clamp_min(a, b)
+
+    @staticmethod
+    def minimum(a, b):
+        return torch.minimum(a, b) if isinstance(b, torch.Tensor) \
+            else torch.clamp_max(a, b)
+
+    @staticmethod
+    def clip(x, lo, hi):
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def true_divide(a, b):
+        return _true_div(a, b)
+
+    @staticmethod
+    def square(x):
+        return x * x
+
+    @staticmethod
+    def sign(x):
+        # torch.sign gives 0 for NaN; jnp.sign keeps the NaN.
+        s = torch.sign(x)
+        return torch.where(torch.isnan(x), x, s) if x.is_floating_point() \
+            else s
+
+
+def _math(*xs):
+    """numpy when every operand is a host value, else :class:`_TorchMath`
+    (the JAX evaluator's ``_lib``)."""
+    return np if _all_host(*xs) else _TorchMath
 
 
 #: Graph runs inside _full_precision (over every thread) and the caller's
@@ -268,7 +399,8 @@ def int_conv(x: torch.Tensor, w: torch.Tensor, strides, pads, dilations,
             f"one fp32 conv of reduction depth {int(np.prod(w.shape[1:]))} "
             f"is no exact route beyond {EXACT_FP32_DEPTH}; take fp32_split")
     if route in ("fp32", "float64"):
-        return _conv_float(x, prepared, strides, pads, dilations, group)
+        return _conv_float(x, prepared, strides, pads, dilations,
+                           group).to(torch.int32)
     if route == "fp32_split":
         return _conv_fp32_split(x, prepared, strides, pads, dilations, group)
     c_out = w.shape[0]
@@ -297,8 +429,9 @@ def int_conv(x: torch.Tensor, w: torch.Tensor, strides, pads, dilations,
 
 
 def _conv_float(x, w, strides, pads, dilations, group) -> torch.Tensor:
-    """An int8 conv computed in ``w``'s float dtype (TF32 off) and returned
-    as int32: exact where every partial sum is an exactly held integer."""
+    """An integer conv computed in ``w``'s float dtype (TF32 off), its
+    result still in that dtype: exact where every partial sum is an exactly
+    held integer."""
     spatial = x.ndim - 2
     # Contiguous NCHW: a channels-last input would send the depthwise conv
     # to cuDNN rather than PyTorch's direct-summation kernel.
@@ -310,6 +443,30 @@ def _conv_float(x, w, strides, pads, dilations, group) -> torch.Tensor:
     conv = (F.conv1d, F.conv2d, F.conv3d)[spatial - 1]
     with _full_precision():
         out = conv(xf, w, None, strides, lo, dilations, group)
+    return out
+
+
+def wide_int_conv(x: torch.Tensor, w: torch.Tensor, strides, pads,
+                  dilations, group: int) -> torch.Tensor:
+    """Exact int32 convolution of integer operands up to 255 in
+    magnitude (the zero-point shifted operands of QLinearConv and
+    ConvInteger; padding is 0 in the shifted domain, the zero point in the
+    quantized one). Float64 products on every device: each partial sum is
+    an integer below 2^53 for any depth under 2^53 / 255^2 (1.4e11), so
+    direct summation is exact, and the result is rounded to the nearest
+    integer so that a transform-based algorithm (cuDNN's FFT or Winograd,
+    off by far less than 0.5) is exact too."""
+    out = _conv_float(x, w.to(torch.float64), strides, pads, dilations,
+                      group)
+    return torch.round(out).to(torch.int32)
+
+
+def wide_int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int32 product ``a @ b`` (numpy matmul broadcasting) of
+    integer operands up to 255 in magnitude: float64 products
+    (cuBLAS DGEMM on the card), exact for any depth under 2^53 / 255^2."""
+    with _full_precision():
+        out = torch.matmul(a.to(torch.float64), b.to(torch.float64))
     return out.to(torch.int32)
 
 
@@ -378,11 +535,17 @@ class _Evaluator:
         self._bn_folds: dict[str, tuple] = {}
         #: Fused front-end kernel layouts: (id(w), id(fb)) -> (w, fb, layout).
         self._logmel_layouts: dict[tuple, tuple] = {}
-        #: Conv1d-STFT kernel weight layouts: (id(w), device) -> (w, layout).
+        #: Conv1d-STFT kernel weight layouts: (output name, device) -> (w,
+        #: layout); one per node, so a weight computed afresh each run (a
+        #: DequantizeLinear of an int8 one) replaces its entry.
         self._conv1d_layouts: dict[tuple, tuple] = {}
         #: int8 weights laid out for their integer route: (id(w), route) ->
         #: (w, layout).
         self._int_layouts: dict[tuple, tuple] = {}
+        #: Values folded on constants (a node's, keyed by id(node); host
+        #: arithmetic inside a handler, a requantize scale or a shifted
+        #: weight, by (what, id(node))): key -> (inputs, value).
+        self._memos: dict = {}
 
     @property
     def compute_dtype(self):
@@ -428,13 +591,65 @@ class _Evaluator:
                     self._fetch(node, pos, i, env[i]) if i else None
                     for pos, i in enumerate(node.inputs)
                 ]
-                result = handler(node, *args)
+                result = self._call(node, handler, args)
                 if not isinstance(result, tuple):
                     result = (result,)
                 for out_name, val in zip(node.outputs, result):
                     if out_name:
                         env[out_name] = self._store(out_name, val)
         return env
+
+    def _constant(self, v) -> bool:
+        """Whether ``v`` is the same value on every run: absent, an
+        immutable host scalar, or a host array the evaluator keeps
+        (constants, params, earlier folds)."""
+        if isinstance(v, np.ndarray):
+            return id(v) in self._persistent
+        return v is None or isinstance(v, (np.generic, int, float, bool))
+
+    def _call(self, node, handler, args):
+        """One node's handler. A node whose inputs are all host values
+        folds on the host: a tensor it returns comes back as numpy; and
+        where they are all constants, once (:meth:`_memo`)."""
+        if not _all_host(*args):
+            return handler(node, *args)
+
+        def fold():
+            result = handler(node, *args)
+            return (tuple(_as_host(v) for v in result)
+                    if isinstance(result, tuple) else _as_host(result))
+
+        return self._memo(id(node), args, fold)
+
+    def _memo(self, key, inputs, make):
+        """``make()`` once for these ``inputs`` while each is a constant
+        (:meth:`_constant`) and the same object as on the last call under
+        ``key``; its arrays are kept persistent, so a device copy of them is
+        made once (as a jit trace folds constants once). Computed afresh
+        otherwise."""
+        if not all(self._constant(v) for v in inputs):
+            return make()
+        hit = self._memos.get(key)
+        if hit is not None and len(hit[0]) == len(inputs) and all(
+                a is b for a, b in zip(hit[0], inputs)):
+            return hit[1]
+        val = make()
+        self._memos[key] = (list(inputs), val)
+        self._persistent.update(
+            id(v) for v in (val if isinstance(val, tuple) else (val,))
+            if isinstance(v, np.ndarray))
+        return val
+
+    @staticmethod
+    def _host_value(node, x, what: str):
+        """``x``, which sets a shape or a static parameter: a device
+        tensor there is refused, not read."""
+        if isinstance(x, torch.Tensor):
+            raise UnsupportedOnnxOp(
+                f"{node.op_type} (node '{node.name}'): {what} is a device "
+                "value; it must be a host constant (the JAX evaluator's "
+                "trace refuses it, and reading it would sync the device)")
+        return x
 
     def _store(self, name, val):
         """Hook over every value entering the environment."""
@@ -466,18 +681,39 @@ class _Evaluator:
             return x
         return self._tensor(x, device)
 
+    def _promote(self, *xs, dev=None, uniform: bool = False) -> list:
+        """Operands of one elementwise op as jax.numpy takes them: host
+        arrays become tensors on the operands' device, and the tensors
+        promote as jnp promotes them, on the dtypes alone. torch's own
+        promotion does the same among dimensioned tensors, inside the op's
+        kernel; but it lets a 0-d tensor yield to a dimensioned one of its
+        category, so where both kinds meet with different dtypes each
+        tensor is cast to the common dtype first (``uniform``: always, for
+        ops that take one dtype). Python scalars stay weak; None passes."""
+        dev = _device_of(*xs) if dev is None else dev
+        ts = [x if x is None else self._operand(x, dev) for x in xs]
+        tensors = [t for t in ts if isinstance(t, torch.Tensor)]
+        if len({t.dtype for t in tensors}) < 2 or not (uniform or (
+                any(t.dim() == 0 for t in tensors)
+                and any(t.dim() for t in tensors))):
+            return ts
+        dt = tensors[0].dtype
+        for t in tensors[1:]:
+            dt = torch.promote_types(dt, t.dtype)
+        return [t.to(dt) if isinstance(t, torch.Tensor) and t.dtype != dt
+                else t for t in ts]
+
     def _binary(self, np_fn, torch_fn, a, b):
         if _is_host(a) and _is_host(b):
             return np_fn(a, b)
-        dev = _device_of(a, b)
-        a, b = self._operand(a, dev), self._operand(b, dev)
-        if (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
-                and a.dtype != b.dtype and 0 in (a.dim(), b.dim())):
-            # torch lets a 0-d tensor take the other operand's dtype
-            # category; jax.numpy promotes on the dtypes alone.
-            dt = torch.promote_types(a.dtype, b.dtype)
-            a, b = a.to(dt), b.to(dt)
-        return torch_fn(a, b)
+        return torch_fn(*self._promote(a, b))
+
+    def _where(self, cond, a, b):
+        if _is_host(cond) and _is_host(a) and _is_host(b):
+            return np.where(cond, a, b)
+        dev = _device_of(cond, a, b)
+        a, b = self._promote(a, b, dev=dev)
+        return torch.where(self._tensor(cond, dev).to(torch.bool), a, b)
 
     def _mm_cast(self, device, *xs):
         """Matmul/conv operands as tensors on ``device``, float operands at
@@ -528,17 +764,167 @@ class _Evaluator:
             return res
         return self._binary(np.divide, torch.div, a, b)
 
+    def op_Pow(self, node, a, b):
+        return self._binary(np.power, torch.pow, a, b)
+
     def op_Sqrt(self, node, x):
-        return np.sqrt(x) if _is_host(x) else torch.sqrt(x)
+        return _math(x).sqrt(x)
+
+    def op_Exp(self, node, x):
+        return _math(x).exp(x)
 
     def op_Log(self, node, x):
-        return np.log(x) if _is_host(x) else torch.log(x)
+        return _math(x).log(x)
+
+    def op_Neg(self, node, x):
+        return _math(x).negative(x)
+
+    def op_Abs(self, node, x):
+        return _math(x).abs(x)
+
+    def op_Floor(self, node, x):
+        return _math(x).floor(x)
+
+    def op_Ceil(self, node, x):
+        return _math(x).ceil(x)
+
+    def op_Reciprocal(self, node, x):
+        return 1.0 / x
+
+    def op_Min(self, node, *xs):
+        out = xs[0]
+        for x in xs[1:]:
+            out = self._binary(np.minimum, torch.minimum, out, x)
+        return out
+
+    def op_Max(self, node, *xs):
+        out = xs[0]
+        for x in xs[1:]:
+            out = self._binary(np.maximum, torch.maximum, out, x)
+        return out
+
+    def op_Erf(self, node, x):
+        if _is_host(x):
+            from scipy.special import erf as _erf
+
+            return _erf(x).astype(np.asarray(x).dtype)
+        return torch.erf(x)
+
+    def op_Relu(self, node, x):
+        return _math(x).maximum(x, 0)
+
+    def op_LeakyRelu(self, node, x):
+        alpha = node.attr("alpha", 0.01)
+        return _math(x).where(x >= 0, x, alpha * x)
+
+    def op_PRelu(self, node, x, slope):
+        neg = self._binary(np.multiply, torch.mul, slope, x)
+        return self._where(x >= 0, x, neg)
+
+    def op_Elu(self, node, x):
+        alpha = node.attr("alpha", 1.0)
+        m = _math(x)
+        return m.where(x >= 0, x, alpha * (m.exp(x) - 1))
 
     def op_Sigmoid(self, node, x):
         if _is_host(x):
             z = np.asarray(x).astype(np.float64)
             return (1.0 / (1.0 + np.exp(-z))).astype(np.float32)
         return torch.sigmoid(x)
+
+    def op_HardSigmoid(self, node, x):
+        alpha = node.attr("alpha", 0.2)
+        beta = node.attr("beta", 0.5)
+        return _math(x).clip(alpha * x + beta, 0, 1)
+
+    def op_HardSwish(self, node, x):
+        m = _math(x)
+        return x * m.clip(m.true_divide(x, 6.0) + 0.5, 0, 1)
+
+    def op_Tanh(self, node, x):
+        return _math(x).tanh(x)
+
+    def op_Softplus(self, node, x):
+        m = _math(x)
+        return m.log1p(m.exp(-m.abs(x))) + m.maximum(x, 0)
+
+    def op_Celu(self, node, x):
+        alpha = node.attr("alpha", 1.0)
+        m = _math(x)
+        return m.maximum(x, 0) + m.minimum(
+            alpha * (m.exp(m.true_divide(m.minimum(x, 0), alpha)) - 1), 0)
+
+    def op_Selu(self, node, x):
+        alpha = node.attr("alpha", 1.6732632423543772)
+        gamma = node.attr("gamma", 1.0507009873554805)
+        m = _math(x)
+        return gamma * m.where(x > 0, x, alpha * (m.exp(m.minimum(x, 0)) - 1))
+
+    def op_Mish(self, node, x):
+        return x * _math(x).tanh(self.op_Softplus(node, x))
+
+    def op_Softsign(self, node, x):
+        return x / (1 + _math(x).abs(x))
+
+    def op_ThresholdedRelu(self, node, x):
+        alpha = node.attr("alpha", 1.0)
+        m = _math(x)
+        return m.where(x > alpha, x, m.zeros_like(x))
+
+    def op_Shrink(self, node, x):
+        bias = node.attr("bias", 0.0)
+        lambd = node.attr("lambd", 0.5)
+        m = _math(x)
+        return m.where(x < -lambd, x + bias,
+                       m.where(x > lambd, x - bias, m.zeros_like(x)))
+
+    def op_Sin(self, node, x):
+        return _math(x).sin(x)
+
+    def op_Cos(self, node, x):
+        return _math(x).cos(x)
+
+    def op_Tan(self, node, x):
+        return _math(x).tan(x)
+
+    def op_Asin(self, node, x):
+        return _math(x).arcsin(x)
+
+    def op_Acos(self, node, x):
+        return _math(x).arccos(x)
+
+    def op_Atan(self, node, x):
+        return _math(x).arctan(x)
+
+    def op_Sinh(self, node, x):
+        return _math(x).sinh(x)
+
+    def op_Cosh(self, node, x):
+        return _math(x).cosh(x)
+
+    def op_Asinh(self, node, x):
+        return _math(x).arcsinh(x)
+
+    def op_Acosh(self, node, x):
+        return _math(x).arccosh(x)
+
+    def op_Atanh(self, node, x):
+        return _math(x).arctanh(x)
+
+    def op_Dropout(self, node, x, ratio=None, training_mode=None):
+        """Inference no-op; a host ``training_mode=True`` is refused, a
+        device one is not read (as in the JAX evaluator's trace)."""
+        if (training_mode is not None and _is_host(training_mode)
+                and bool(np.asarray(training_mode).reshape(-1)[0])):
+            raise UnsupportedOnnxOp(
+                "Dropout with training_mode=True (training graph, not an "
+                "inference export)")
+        if len(node.outputs) > 1 and node.outputs[1]:
+            mask = (np.ones(np.shape(x), np.bool_) if _is_host(x)
+                    else torch.ones(x.shape, dtype=torch.bool,
+                                    device=x.device))
+            return x, mask
+        return x
 
     def _softmax_axes(self, node, x) -> tuple:
         """Opset >= 13: softmax along one axis (default -1). Opset < 13:
@@ -560,7 +946,337 @@ class _Evaluator:
         e = torch.exp(x - x.amax(dim=axes, keepdim=True))
         return e / e.sum(dim=axes, keepdim=True)
 
+    def op_LogSoftmax(self, node, x):
+        axes = self._softmax_axes(node, x)
+        if _is_host(x):
+            z = x - np.max(x, axis=axes, keepdims=True)
+            return z - np.log(np.exp(z).sum(axis=axes, keepdims=True))
+        z = x - x.amax(dim=axes, keepdim=True)
+        return z - torch.log(torch.exp(z).sum(dim=axes, keepdim=True))
+
+    def op_Hardmax(self, node, x):
+        """One-hot of the first largest element along ``axis`` (opset <
+        13: over the flattened trailing block), in the input's dtype."""
+        host = _is_host(x)
+        if 0 < self.opset < 13:
+            ax = node.attr("axis", 1) % x.ndim
+            rows = int(np.prod(x.shape[:ax], dtype=np.int64)) if ax else 1
+            if host:
+                flat = np.reshape(x, (rows, -1))
+                one = np.arange(flat.shape[1]) == np.expand_dims(
+                    np.argmax(flat, axis=1), 1)
+                return np.reshape(one.astype(np.asarray(x).dtype), x.shape)
+            flat = x.reshape(rows, -1)
+            one = torch.arange(flat.shape[1], device=x.device) == \
+                flat.argmax(1)[:, None]
+            return one.to(x.dtype).reshape(x.shape)
+        ax = node.attr("axis", -1) % x.ndim
+        shape = [1] * x.ndim
+        shape[ax] = x.shape[ax]
+        if host:
+            one = np.reshape(np.arange(x.shape[ax]), shape) == \
+                np.expand_dims(np.argmax(x, axis=ax), ax)
+            return one.astype(np.asarray(x).dtype)
+        one = torch.arange(x.shape[ax], device=x.device).reshape(shape) == \
+            x.argmax(ax).unsqueeze(ax)
+        return one.to(x.dtype)
+
+    def op_Clip(self, node, x, lo=None, hi=None):
+        """``jnp.clip``: maximum with ``lo``, then minimum with ``hi``, each
+        promoting (a float32 constant bound turns a bf16 input float32; the
+        default infinite bounds are weak)."""
+        if lo is None:
+            lo = node.attr("min", -np.inf)
+        if hi is None:
+            hi = node.attr("max", np.inf)
+        if _is_host(x):
+            return np.clip(x, lo, hi)
+        x, lo, hi = self._promote(x, lo, hi, uniform=True)
+        for bound in (lo, hi):
+            if not isinstance(bound, torch.Tensor):
+                dt = torch.result_type(torch.empty(1, dtype=x.dtype), bound)
+                x = x.to(dt)
+        x = torch.clamp_min(x, lo.to(x.dtype) if isinstance(lo, torch.Tensor)
+                            else lo)
+        return torch.clamp_max(x, hi.to(x.dtype)
+                               if isinstance(hi, torch.Tensor) else hi)
+
+    def op_Where(self, node, cond, a, b):
+        return self._where(cond, a, b)
+
+    def op_Equal(self, node, a, b):
+        return self._binary(np.equal, torch.eq, a, b)
+
+    def op_Greater(self, node, a, b):
+        return self._binary(np.greater, torch.gt, a, b)
+
+    def op_Less(self, node, a, b):
+        return self._binary(np.less, torch.lt, a, b)
+
+    def op_Not(self, node, x):
+        return _math(x).logical_not(x)
+
+    def op_And(self, node, a, b):
+        return self._binary(np.logical_and, torch.logical_and, a, b)
+
+    def op_Or(self, node, a, b):
+        return self._binary(np.logical_or, torch.logical_or, a, b)
+
+    def op_Xor(self, node, a, b):
+        return self._binary(np.logical_xor, torch.logical_xor, a, b)
+
+    def op_GreaterOrEqual(self, node, a, b):
+        return self._binary(np.greater_equal, torch.ge, a, b)
+
+    def op_LessOrEqual(self, node, a, b):
+        return self._binary(np.less_equal, torch.le, a, b)
+
+    def op_IsNaN(self, node, x):
+        return _math(x).isnan(x)
+
+    def op_IsInf(self, node, x):
+        detect_pos = node.attr("detect_positive", 1)
+        detect_neg = node.attr("detect_negative", 1)
+        m = _math(x)
+        if detect_pos and detect_neg:
+            return m.isinf(x)
+        if detect_pos:
+            return m.isposinf(x)
+        if detect_neg:
+            return m.isneginf(x)
+        if m is np:
+            return np.zeros(np.shape(x), np.bool_)
+        return torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+
+    def op_Sum(self, node, *xs):
+        out = xs[0]
+        for x in xs[1:]:
+            out = self._binary(np.add, torch.add, out, x)
+        return out
+
+    def op_Mean(self, node, *xs):
+        total = self.op_Sum(node, *xs)
+        return _math(total).true_divide(total, len(xs))
+
+    def op_Mod(self, node, a, b):
+        """``jnp.fmod`` (``fmod=1``) or ``jnp.mod``: a truncated remainder,
+        for ``mod`` moved by the divisor where the signs differ, an integer
+        divisor of 0 taken as 1 (the same arithmetic, so the same bits)."""
+        fmod = node.attr("fmod", 0)
+        if _is_host(a) and _is_host(b):
+            return np.fmod(a, b) if fmod else np.mod(a, b)
+        a, b = self._promote(a, b, uniform=True)
+        if not (a.is_floating_point() or a.is_complex()):
+            b = torch.where(b == 0, torch.ones_like(b), b)
+        rem = torch.fmod(a, b)
+        if fmod:
+            return rem
+        move = ((rem < 0) != (b < 0)) & (rem != 0)
+        return torch.where(move, rem + b, rem)
+
     # -- shape / structure ---------------------------------------------------
+
+    def op_Identity(self, node, x):
+        return x
+
+    def op_Cast(self, node, x):
+        to = _NP_FROM_ONNX_DT[node.attr("to")]
+        if _is_host(x):
+            return np.asarray(x).astype(to)
+        return x.to(_DEVICE_DTYPE[np.dtype(to)])
+
+    def op_Shape(self, node, x):
+        """A host constant. Opset >= 15 start/end (negative counts from the
+        back; both clamp to [0, rank])."""
+        rank = len(np.shape(x))
+
+        def _clamp(v, default):
+            if v is None:
+                return default
+            v = int(v)
+            if v < 0:
+                v += rank
+            return min(max(v, 0), rank)
+
+        start = _clamp(node.attr("start"), 0)
+        end = _clamp(node.attr("end"), rank)
+        return np.asarray(tuple(x.shape)[start:end], np.int64)
+
+    def op_Size(self, node, x):
+        return np.asarray(int(np.prod(x.shape)), np.int64)
+
+    def op_Reshape(self, node, x, shape):
+        shape = [int(s) for s in np.asarray(
+            self._host_value(node, shape, "shape")).reshape(-1)]
+        if not node.attr("allowzero", 0):
+            shape = [x.shape[i] if s == 0 else s for i, s in enumerate(shape)]
+        return x.reshape(shape)
+
+    def op_Split(self, node, x, split=None):
+        axis = node.attr("axis", 0)
+        if split is None:
+            split = node.attr("split")
+        n_out = len(node.outputs)
+        if split is not None:
+            split = [int(s) for s in np.asarray(
+                self._host_value(node, split, "split")).reshape(-1)]
+        if _is_host(x):
+            if split is None:
+                return tuple(np.split(x, n_out, axis=axis))
+            return tuple(np.split(x, np.cumsum(split)[:-1].tolist(),
+                                  axis=axis))
+        if split is None:
+            if x.shape[axis] % n_out:
+                raise ValueError(
+                    "array split does not result in an equal division")
+            return tuple(torch.tensor_split(x, n_out, dim=axis))
+        return tuple(torch.tensor_split(x, np.cumsum(split)[:-1].tolist(),
+                                        dim=axis))
+
+    def _take(self, x, idx, axis: int):
+        """``jnp.take(x, idx, axis)``: negative indices count from the end;
+        an index still out of range gives jnp's fill value (NaN, the
+        smallest signed or largest unsigned integer, True), where
+        ``index_select`` would fault on the card."""
+        dev = _device_of(x, idx)
+        x = self._tensor(x, dev)
+        ax = axis % x.ndim
+        n = x.shape[ax]
+        it = self._tensor(idx, dev).to(torch.int64)
+        it = torch.where(it < 0, it + n, it)
+        valid = (it >= 0) & (it < n)
+        out = x.index_select(ax, it.clamp(0, max(n - 1, 0)).reshape(-1))
+        out = out.reshape(*x.shape[:ax], *it.shape, *x.shape[ax + 1:])
+        mask = valid.reshape((1,) * ax + tuple(it.shape)
+                             + (1,) * (x.ndim - ax - 1))
+        return torch.where(mask, out, _fill_value(x.dtype))
+
+    def op_Gather(self, node, x, idx):
+        axis = node.attr("axis", 0)
+        if _is_host(x) and _is_host(idx):
+            return np.take(x, np.asarray(idx), axis=axis)
+        return self._take(x, idx, axis)
+
+    def op_GatherElements(self, node, x, idx):
+        axis = node.attr("axis", 0)
+        if _is_host(x) and _is_host(idx):
+            return np.take_along_axis(np.asarray(x), np.asarray(idx),
+                                      axis=axis)
+        dev = _device_of(x, idx)
+        x = self._tensor(x, dev)
+        ax = axis % x.ndim
+        n = x.shape[ax]
+        it = self._tensor(idx, dev).to(torch.int64)
+        it = torch.where(it < 0, it + n, it)
+        valid = (it >= 0) & (it < n)
+        out = torch.gather(x, ax, it.clamp(0, max(n - 1, 0)))
+        return torch.where(valid, out, _fill_value(x.dtype))
+
+    def op_Expand(self, node, x, shape):
+        shape = [int(s) for s in np.asarray(
+            self._host_value(node, shape, "shape")).reshape(-1)]
+        target = list(np.broadcast_shapes(tuple(x.shape), tuple(shape)))
+        if _is_host(x):
+            return np.broadcast_to(x, target)
+        return x.expand(target)
+
+    def op_Tile(self, node, x, repeats):
+        repeats = [int(r) for r in np.asarray(
+            self._host_value(node, repeats, "repeats")).reshape(-1)]
+        return np.tile(x, repeats) if _is_host(x) else torch.tile(x, repeats)
+
+    def op_SpaceToDepth(self, node, x):
+        """NCHW [N,C,H,W] -> [N,C*b*b,H/b,W/b]."""
+        b = node.attr("blocksize")
+        n, c, h, w = x.shape
+        if _is_host(x):
+            y = np.reshape(x, (n, c, h // b, b, w // b, b))
+            y = np.transpose(y, (0, 3, 5, 1, 2, 4))
+            return np.reshape(y, (n, c * b * b, h // b, w // b))
+        y = x.reshape(n, c, h // b, b, w // b, b).permute(0, 3, 5, 1, 2, 4)
+        return y.reshape(n, c * b * b, h // b, w // b)
+
+    def op_DepthToSpace(self, node, x):
+        b = node.attr("blocksize")
+        mode = node.attr("mode", b"DCR")
+        if isinstance(mode, bytes):
+            mode = mode.decode()
+        n, c, h, w = x.shape
+        if mode == "DCR":
+            split, perm = (n, b, b, c // (b * b), h, w), (0, 3, 4, 1, 5, 2)
+        else:  # CRD
+            split, perm = (n, c // (b * b), b, b, h, w), (0, 1, 4, 2, 5, 3)
+        out = (n, c // (b * b), h * b, w * b)
+        if _is_host(x):
+            return np.reshape(np.transpose(np.reshape(x, split), perm), out)
+        return x.reshape(split).permute(perm).reshape(out)
+
+    def op_Trilu(self, node, x, k=None):
+        kk = 0 if k is None else int(np.asarray(
+            self._host_value(node, k, "k")).reshape(-1)[0])
+        if _is_host(x):
+            return np.triu(x, kk) if node.attr("upper", 1) \
+                else np.tril(x, kk)
+        return torch.triu(x, kk) if node.attr("upper", 1) \
+            else torch.tril(x, kk)
+
+    def op_Range(self, node, start, limit, delta):
+        start, limit, delta = (self._host_value(node, v, "a Range bound")
+                               for v in (start, limit, delta))
+        return np.arange(int(start), int(limit), int(delta), dtype=np.int64)
+
+    def op_ConstantOfShape(self, node, shape):
+        shape = [int(s) for s in np.asarray(
+            self._host_value(node, shape, "shape")).reshape(-1)]
+        t = node.attr("value")
+        if t is not None and getattr(t, "array", None) is not None:
+            fill = t.array.reshape(-1)[0]
+            return np.full(shape, fill, t.array.dtype)
+        return np.zeros(shape, np.float32)
+
+    def op_Pad(self, node, x, pads=None, value=None, axes=None):
+        """``jnp.pad``: constant (the value input, else 0), reflect, edge or
+        wrap; a negative pad is refused, as jnp.pad refuses it. The
+        non-constant modes gather each padded axis at the indices
+        ``np.pad`` gives an ``arange`` of it, which is numpy's (and so
+        jnp's) definition of the mode."""
+        mode = node.attr("mode", b"constant")
+        if isinstance(mode, bytes):
+            mode = mode.decode()
+        if pads is None:
+            pads = node.attr("pads")
+        pads = [int(p) for p in np.asarray(
+            self._host_value(node, pads, "pads")).reshape(-1)]
+        nd = x.ndim
+        if axes is not None:
+            ax = [int(a) % nd for a in np.asarray(
+                self._host_value(node, axes, "axes")).reshape(-1)]
+        else:
+            ax = list(range(nd))
+        half = len(pads) // 2
+        pad_width = [(0, 0)] * nd
+        for i, a in enumerate(ax):
+            pad_width[a] = (pads[i], pads[i + half])
+        if mode == "constant":
+            cv = 0 if value is None else float(np.asarray(self._host_value(
+                node, value, "the pad value")).reshape(-1)[0])
+            if _is_host(x):
+                return np.pad(x, pad_width, mode="constant",
+                              constant_values=cv)
+        np_mode = {"reflect": "reflect", "edge": "edge", "wrap": "wrap",
+                   "constant": "constant"}[mode]
+        if _is_host(x):
+            return np.pad(x, pad_width, mode=np_mode)
+        if any(p < 0 for pair in pad_width for p in pair):
+            raise ValueError("index can't contain negative values")
+        if mode == "constant":
+            flat = [v for pair in reversed(pad_width) for v in pair]
+            return F.pad(x, flat, value=cv)
+        for a, (lo, hi) in enumerate(pad_width):
+            if lo or hi:
+                idx = np.pad(np.arange(x.shape[a]), (lo, hi), mode=np_mode)
+                x = x.index_select(a, torch.from_numpy(idx).to(x.device))
+        return x
 
     def op_Flatten(self, node, x):
         axis = node.attr("axis", 1)
@@ -647,13 +1363,14 @@ class _Evaluator:
     _REDUCE_NOOP = object()
 
     def _reduce_plan(self, node, x, axes):
-        """Axes from the input, else the attribute; empty or absent axes
-        follow ``noop_with_empty_axes`` (None = every axis)."""
+        """Axes from the input (a host value), else the attribute; empty or
+        absent axes follow ``noop_with_empty_axes`` (None = every axis)."""
         if axes is None:
             axes = node.attr("axes")
         if axes is not None:
             nd = np.ndim(x)
-            t = tuple(int(a) % nd for a in np.asarray(axes).reshape(-1))
+            t = tuple(int(a) % nd for a in np.asarray(
+                self._host_value(node, axes, "axes")).reshape(-1))
             if t:
                 return t
         return self._REDUCE_NOOP if node.attr("noop_with_empty_axes", 0) \
@@ -661,25 +1378,115 @@ class _Evaluator:
 
     @staticmethod
     def _mean(x, axes, keepdims: bool):
-        """jnp.mean's arithmetic: fp32 accumulation, result at the input's
-        float dtype."""
+        """jnp.mean's arithmetic: fp32 accumulation, the result at the
+        input's float dtype (float32 for an integer input)."""
         dims = axes if axes is not None else tuple(range(x.ndim))
-        return x.float().mean(dim=dims, keepdim=keepdims).to(x.dtype)
+        out = x.float().mean(dim=dims, keepdim=keepdims)
+        return out.to(x.dtype) if x.is_floating_point() else out
+
+    @staticmethod
+    def _torch_reduce(fn_name, x, plan, keepdims: bool):
+        """The jnp reduction ``fn_name`` over ``plan`` (None: every axis)
+        of a tensor."""
+        dims = plan if plan is not None else tuple(range(x.ndim))
+        if fn_name == "mean":
+            return _Evaluator._mean(x, dims, keepdims)
+        if fn_name == "sum":
+            if not x.is_floating_point():
+                return x.sum(dim=dims, keepdim=keepdims,
+                             dtype=torch.int64).to(_int_acc(x.dtype))
+            return x.sum(dim=dims, keepdim=keepdims)
+        if fn_name == "max":
+            return x.amax(dim=dims, keepdim=keepdims)
+        if fn_name == "min":
+            return x.amin(dim=dims, keepdim=keepdims)
+        if fn_name == "prod":
+            acc = None if x.is_floating_point() else _int_acc(x.dtype)
+            for d in sorted(dims, reverse=True):
+                x = x.prod(d, keepdim=keepdims)
+            return x if acc is None else x.to(acc)
+        raise ValueError(f"unknown reduction {fn_name!r}")
+
+    def _reduce(self, node, x, fn_name, axes=None, pre=None):
+        plan = self._reduce_plan(node, x, axes)
+        if plan is self._REDUCE_NOOP:
+            return x
+        y = x if pre is None else pre(_math(x), x)
+        keepdims = bool(node.attr("keepdims", 1))
+        if _is_host(y):
+            return getattr(np, fn_name)(y, axis=plan, keepdims=keepdims)
+        return self._torch_reduce(fn_name, y, plan, keepdims)
 
     def op_ReduceMean(self, node, x, axes=None):
+        return self._reduce(node, x, "mean", axes)
+
+    def op_ReduceSum(self, node, x, axes=None):
+        return self._reduce(node, x, "sum", axes)
+
+    def op_ReduceMax(self, node, x, axes=None):
+        return self._reduce(node, x, "max", axes)
+
+    def op_ReduceMin(self, node, x, axes=None):
+        return self._reduce(node, x, "min", axes)
+
+    def op_ReduceProd(self, node, x, axes=None):
+        return self._reduce(node, x, "prod", axes)
+
+    def op_ReduceL1(self, node, x, axes=None):
+        return self._reduce(node, x, "sum", axes, pre=lambda m, v: m.abs(v))
+
+    def op_ReduceL2(self, node, x, axes=None):
+        out = self._reduce(node, x, "sum", axes,
+                           pre=lambda m, v: m.square(v))
+        return out if out is x else _math(out).sqrt(out)
+
+    def op_ReduceSumSquare(self, node, x, axes=None):
+        return self._reduce(node, x, "sum", axes,
+                            pre=lambda m, v: m.square(v))
+
+    def op_ReduceLogSum(self, node, x, axes=None):
+        out = self._reduce(node, x, "sum", axes)
+        return out if out is x else _math(out).log(out)
+
+    def op_ReduceLogSumExp(self, node, x, axes=None):
+        """Max-subtracted: the ONNX value without overflow."""
         plan = self._reduce_plan(node, x, axes)
         if plan is self._REDUCE_NOOP:
             return x
         keepdims = bool(node.attr("keepdims", 1))
         if _is_host(x):
-            return np.mean(x, axis=plan, keepdims=keepdims)
-        return self._mean(x, plan, keepdims)
+            peak = np.max(x, axis=plan, keepdims=True)
+            out = np.log(np.sum(np.exp(x - peak), axis=plan,
+                                keepdims=True)) + peak
+            if not keepdims:
+                out = np.squeeze(out, axis=plan) if plan is not None \
+                    else np.reshape(out, ())
+            return out
+        peak = self._torch_reduce("max", x, plan, True)
+        out = torch.log(self._torch_reduce("sum", torch.exp(x - peak), plan,
+                                           True)) + peak
+        if not keepdims:
+            out = out.squeeze(plan) if plan is not None else out.reshape(())
+        return out
 
-    def op_GlobalAveragePool(self, node, x):
-        axes = tuple(range(2, np.ndim(x)))
+    def _argreduce(self, node, x, fn_name):
+        axis = node.attr("axis", 0)
+        keepdims = bool(node.attr("keepdims", 1))
+        if node.attr("select_last_index", 0):
+            raise UnsupportedOnnxOp(f"{node.op_type} select_last_index=1")
         if _is_host(x):
-            return np.mean(x, axis=axes, keepdims=True)
-        return self._mean(x, axes, True)
+            out = getattr(np, fn_name)(x, axis=axis)
+            if keepdims:
+                out = np.expand_dims(out, axis)
+            return out.astype(np.int64)
+        out = getattr(torch, fn_name)(x, dim=axis).to(torch.int32)
+        return out.unsqueeze(axis) if keepdims else out
+
+    def op_ArgMax(self, node, x):
+        return self._argreduce(node, x, "argmax")
+
+    def op_ArgMin(self, node, x):
+        return self._argreduce(node, x, "argmin")
 
     # -- linear algebra ------------------------------------------------------
 
@@ -694,12 +1501,11 @@ class _Evaluator:
         return hit[1]
 
     def _int_matmul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """Exact int32 product of int8 ``a [..., K]`` and ``b [K, N]``."""
+        """Exact int32 product of integer ``a [..., K]`` and ``b``: int8
+        ``[K, N]`` on the int8 routes, anything else (the zero-point shifted
+        int32 operands of the quantized ops) in float64."""
         if a.dtype != torch.int8 or b.dtype != torch.int8 or b.ndim != 2:
-            raise UnsupportedOnnxOp(
-                f"integer product of {a.dtype} [{tuple(a.shape)}] and "
-                f"{b.dtype} [{tuple(b.shape)}]: only int8 [.., K] x [K, N] "
-                "has an exact route")
+            return wide_int_matmul(a, b)
         wb = self._int_layout(b, "matmul") if a.device.type == "cuda" else b
         out = int_matmul(a.reshape(-1, a.shape[-1]), wb, b.shape[1])
         return out.reshape(*a.shape[:-1], b.shape[1])
@@ -792,7 +1598,8 @@ class _Evaluator:
                 # The hand-written kernel (bf16 operands, fp32 sums, bf16
                 # [B, C, T] out); the bias joins after it in bf16, as on
                 # the JAX package's kernel path.
-                layout = self._conv1d_layout(w, dev) if dev.type == "cuda" \
+                layout = self._conv1d_layout(node.outputs[0], w, dev) \
+                    if dev.type == "cuda" \
                     else None
                 out = stft_conv.conv1d_stft(
                     self._tensor(x, dev)[:, 0, :],
@@ -814,9 +1621,13 @@ class _Evaluator:
                 f"Conv (node '{node.name}') of {x.dtype} input and {w.dtype} "
                 "weight")
         if not x.is_floating_point():
-            # Integer conv (the int8 path): exact int32 sums, no compute-dtype
-            # output cast, as the JAX route's preferred_element_type=int32.
-            out = self._int_conv(x, w, strides, pads, dilations, group)
+            # Integer conv: exact int32 sums, no compute-dtype output cast,
+            # as the JAX route's preferred_element_type=int32; int8 (the
+            # int8 path) on its routes, wider integers in float64.
+            if x.dtype == w.dtype == torch.int8:
+                out = self._int_conv(x, w, strides, pads, dilations, group)
+            else:
+                out = wide_int_conv(x, w, strides, pads, dilations, group)
             return self._bias(out, b, spatial)
         lo = [p[0] for p in pads]
         hi = [p[1] for p in pads]
@@ -849,10 +1660,10 @@ class _Evaluator:
         return stft_conv.fused_logmel(sig, wm, self._tensor(fb, dev),
                                       hop=hop, eps=eps, prepared=layout)
 
-    def _conv1d_layout(self, w, device):
-        """The Conv1d-STFT kernel's layout of this conv's weight, made once
-        per weight."""
-        key = (id(w), device)
+    def _conv1d_layout(self, out_name: str, w, device):
+        """The Conv1d-STFT kernel's layout of the weight of the conv that
+        writes ``out_name``, made once per weight."""
+        key = (out_name, device)
         hit = self._conv1d_layouts.get(key)
         if hit is None or hit[0] is not w:
             layout = stft_conv.prepare_conv1d_weights(
@@ -870,6 +1681,396 @@ class _Evaluator:
                 self._tensor(w, device)[:, 0, :], self._tensor(fb, device))
             hit = self._logmel_layouts[key] = (w, fb, layout)
         return hit[2]
+
+    def op_ConvTranspose(self, node, x, w, b=None):
+        """The JAX evaluator's transposed conv: float32 out, no compute-dtype
+        cast; ``pads`` crop the output (the lhs-dilated lax conv it runs,
+        as ``F.conv_transpose`` with no padding, cropped). ``output_padding``
+        and ``output_shape`` are ignored there and here."""
+        spatial = np.ndim(x) - 2
+        strides = list(node.attr("strides") or [1] * spatial)
+        dilations = list(node.attr("dilations") or [1] * spatial)
+        group = node.attr("group", 1)
+        p = [int(v) for v in (node.attr("pads") or [0] * (2 * spatial))]
+        if group != 1:
+            # lax reads an "IO" weight of [C_in, C_out/group] as C_in input
+            # features per group: the JAX evaluator's conv fails there.
+            raise ValueError(
+                f"ConvTranspose group={group}: the JAX evaluator's lax conv "
+                "takes no grouped transposed weight")
+        dev = _device_of(x, w, b)
+        xt, wt = (t.float() for t in self._promote(x, w, dev=dev))
+        conv = (F.conv_transpose1d, F.conv_transpose2d,
+                F.conv_transpose3d)[spatial - 1]
+        out = self._contract(lambda a, k: conv(a, k, None, strides, 0, 0, 1,
+                                               dilations), xt, wt)
+        crop = [slice(None), slice(None)]
+        for i in range(spatial):
+            n = out.shape[2 + i]
+            crop.append(slice(p[i], n - p[i + spatial]))
+        out = out[tuple(crop)]
+        if b is not None:
+            out = self._binary(np.add, torch.add, out, self._tensor(
+                b, dev).reshape((1, -1) + (1,) * spatial))
+        return out
+
+    def _pool(self, node, x, kind: str):
+        """``lax.reduce_window`` over the spatial axes (``kind`` max or
+        avg), padding with the reduction's identity, as the JAX evaluator:
+        each axis is padded, unfolded into windows of the dilated kernel at
+        the stride, and reduced. ``ceil_mode`` extends the high padding to
+        cover the last window ONNX keeps; average pooling divides by the
+        count of real (or, with ``count_include_pad``, explicitly padded)
+        elements in each window."""
+        spatial = np.ndim(x) - 2
+        kernel = list(node.attr("kernel_shape"))
+        strides = list(node.attr("strides") or [1] * spatial)
+        dilations = [int(d) for d in (node.attr("dilations")
+                                      or [1] * spatial)]
+        autopad = node.attr("auto_pad", b"NOTSET")
+        pads_attr = node.attr("pads")
+        if autopad in (b"SAME_UPPER", b"SAME_LOWER"):
+            pads = _autopad_amounts(list(x.shape[2:]), kernel, strides,
+                                    dilations, autopad)
+        elif autopad == b"VALID" or pads_attr is None:
+            pads = [(0, 0)] * spatial
+        else:
+            p = [int(v) for v in pads_attr]
+            pads = list(zip(p[:spatial], p[spatial:]))
+        base_pads = list(pads)
+        if node.attr("ceil_mode", 0):
+            # ONNX/ORT drop a last window that would start entirely in the
+            # right padding (start >= d + pad_l).
+            pads = []
+            for d, k, s, dl, (pl, ph) in zip(
+                    x.shape[2:], kernel, strides, dilations, base_pads):
+                eff_k = (k - 1) * dl + 1
+                n_out = -(-(d + pl + ph - eff_k) // s) + 1
+                while n_out > 1 and (n_out - 1) * s >= d + pl:
+                    n_out -= 1
+                need = (n_out - 1) * s + eff_k - (d + pl)
+                pads.append((pl, max(ph, need)))
+        x = self._tensor(x, _device_of(x))
+
+        def window(t, pad, fill, reduce):
+            flat = [v for pair in reversed(pad) for v in pair]
+            if any(flat):
+                t = F.pad(t, flat, value=fill)
+            for i, (k, s, dl) in enumerate(zip(kernel, strides, dilations)):
+                t = t.unfold(2 + i, (k - 1) * dl + 1, s)
+                if dl > 1:
+                    t = t[..., ::dl]
+            dims = tuple(range(t.ndim - spatial, t.ndim))
+            return t.amax(dim=dims) if reduce == "max" else t.sum(dim=dims)
+
+        if kind == "max":
+            return window(x, pads, -float("inf"), "max")
+        out = window(x, pads, 0.0, "sum")
+        ones = torch.ones(x.shape, dtype=x.dtype, device=x.device)
+        if node.attr("count_include_pad", 0):
+            # The explicit padding counts, the ceil-mode extension does not.
+            ones = F.pad(ones, [v for pair in reversed(base_pads)
+                                for v in pair], value=1.0)
+            extra = [(0, ph - bh) for (_, ph), (_, bh) in zip(pads,
+                                                                base_pads)]
+            counts = window(ones, extra, 0.0, "sum")
+        else:
+            counts = window(ones, pads, 0.0, "sum")
+        return out / counts
+
+    def op_MaxPool(self, node, x):
+        if sum(1 for o in node.outputs if o) > 1:
+            raise UnsupportedOnnxOp(
+                "MaxPool with an Indices output is not supported")
+        return self._pool(node, x, "max")
+
+    def op_AveragePool(self, node, x):
+        return self._pool(node, x, "avg")
+
+    def op_GlobalAveragePool(self, node, x):
+        axes = tuple(range(2, np.ndim(x)))
+        if _is_host(x):
+            return np.mean(x, axis=axes, keepdims=True)
+        return self._mean(x, axes, True)
+
+    def op_GlobalMaxPool(self, node, x):
+        axes = tuple(range(2, np.ndim(x)))
+        if _is_host(x):
+            return np.max(x, axis=axes, keepdims=True)
+        return x.amax(dim=axes, keepdim=True)
+
+    # -- quantization --------------------------------------------------------
+    #
+    # Both quantized-graph styles of the ONNX Runtime quantizer: QDQ
+    # (QuantizeLinear/DequantizeLinear pairs around float ops) and QOperator
+    # (QLinearConv/QLinearMatMul and the com.microsoft QLinear* ops), with
+    # the JAX evaluator's semantics: quantize = saturate(round_half_even(
+    # x / scale) + zero_point); integer products accumulate exactly, and the
+    # ops around a float intermediate dequantize, compute in float and
+    # requantize.
+
+    @staticmethod
+    def _q_axis_shape(x_ndim: int, axis: int) -> tuple:
+        shape = [1] * x_ndim
+        shape[axis % x_ndim] = -1
+        return tuple(shape)
+
+    def _per_axis(self, arr, x_ndim: int, axis: int):
+        """A per-axis host scale or zero point reshaped to broadcast along
+        ``axis``; scalars (and device values) pass unchanged."""
+        if arr is None:
+            return None
+        if _is_host(arr) and np.asarray(arr).size > 1:
+            return np.asarray(arr).reshape(self._q_axis_shape(x_ndim, axis))
+        return arr
+
+    def _per_axis_tensor(self, arr, dev, x_ndim: int, axis: int):
+        """:meth:`_per_axis` for a device operand: the host constant is
+        copied once and reshaped on the device."""
+        if arr is None or not (_is_host(arr) and np.asarray(arr).size > 1):
+            return arr
+        return self._tensor(arr, dev).reshape(
+            self._q_axis_shape(x_ndim, axis))
+
+    def _quantize(self, x, scale, zp, node, default_dtype=np.uint8):
+        dt = np.asarray(zp).dtype if zp is not None and _is_host(zp) \
+            else np.dtype(default_dtype)
+        info = np.iinfo(dt)
+        ndim = getattr(x, "ndim", 0)
+        axis = node.attr("axis", 1)
+        if _all_host(x, scale, zp):
+            scale = self._per_axis(scale, ndim, axis)
+            zp = self._per_axis(zp, ndim, axis)
+            q = np.round(x / scale) + (0 if zp is None else zp)
+            return np.clip(q, info.min, info.max).astype(dt)
+        dev = _device_of(x, scale, zp)
+        scale = self._per_axis_tensor(scale, dev, ndim, axis)
+        zp = self._per_axis_tensor(zp, dev, ndim, axis)
+        q = torch.round(self._binary(np.divide, torch.div, x, scale))
+        if zp is not None:
+            q = self._binary(np.add, torch.add, q, zp)
+        return torch.clamp(q, info.min, info.max).to(_DEVICE_DTYPE[dt])
+
+    def _dequantize(self, x, scale, zp, node):
+        ndim = getattr(x, "ndim", 0)
+        axis = node.attr("axis", 1)
+        if _all_host(x, scale, zp):
+            scale = self._per_axis(scale, ndim, axis)
+            zp = self._per_axis(zp, ndim, axis)
+            xf = np.asarray(x, np.float32)
+            zf = 0.0 if zp is None else np.asarray(zp, np.float32)
+            return (xf - zf) * scale
+        dev = _device_of(x, scale, zp)
+        scale = self._per_axis_tensor(scale, dev, ndim, axis)
+        zp = self._per_axis_tensor(zp, dev, ndim, axis)
+        xf = self._tensor(x, dev).float()
+        zf = 0.0 if zp is None else self._tensor(zp, dev).float()
+        return self._binary(np.multiply, torch.mul, xf - zf, scale)
+
+    def op_QuantizeLinear(self, node, x, scale, zp=None):
+        return self._quantize(x, scale, zp, node)
+
+    def op_DequantizeLinear(self, node, x, scale, zp=None):
+        return self._dequantize(x, scale, zp, node)
+
+    def op_DynamicQuantizeLinear(self, node, x):
+        qmin, qmax = 0.0, 255.0
+        if _is_host(x):
+            lo = np.minimum(np.min(x), 0.0)
+            hi = np.maximum(np.max(x), 0.0)
+            scale = (hi - lo) / (qmax - qmin)
+            zp_f = np.clip(np.round(qmin - lo / scale), qmin, qmax)
+            q = np.clip(np.round(x / scale) + zp_f, qmin, qmax).astype(
+                np.uint8)
+            return q, scale.astype(np.float32), zp_f.astype(np.uint8)
+        lo = torch.clamp_max(x.amin(), 0.0)
+        hi = torch.clamp_min(x.amax(), 0.0)
+        scale = _true_div(hi - lo, qmax - qmin)
+        zp_f = torch.clamp(torch.round(qmin - lo / scale), qmin, qmax)
+        q = torch.clamp(torch.round(x / scale) + zp_f, qmin, qmax)
+        return (q.to(torch.uint8), scale.to(torch.float32),
+                zp_f.to(torch.uint8))
+
+    def _as_i32(self, x, zp):
+        """Zero-point-shifted int32 view of a quantized tensor."""
+        if _all_host(x, zp):
+            xi = np.asarray(x, np.int32)
+            return xi if zp is None else xi - np.asarray(zp, np.int32)
+        dev = _device_of(x, zp)
+        xi = self._tensor(x, dev).to(torch.int32)
+        return xi if zp is None else xi - self._tensor(zp, dev).to(
+            torch.int32)
+
+    def _requantize(self, accf, scale, y_zp):
+        """``saturate(round(acc * scale) + y_zp)`` at y_zp's dtype (uint8
+        when absent)."""
+        dt = np.asarray(y_zp).dtype if y_zp is not None and _is_host(y_zp) \
+            else np.dtype(np.uint8)
+        info = np.iinfo(dt)
+        m = _math(accf, scale, y_zp)
+        q = m.round(self._binary(np.multiply, torch.mul, accf, scale))
+        q = self._binary(np.add, torch.add, q, 0 if y_zp is None else y_zp)
+        if m is np:
+            return np.clip(q, info.min, info.max).astype(dt)
+        return torch.clamp(q, info.min, info.max).to(_DEVICE_DTYPE[dt])
+
+    def _shifted_weight(self, node, w, w_zp):
+        """The zero-point-shifted int32 conv weight (per-output-channel
+        zero points on axis 0), made once for a constant weight."""
+        wndim = np.ndim(w)
+        if isinstance(w, torch.Tensor) and w_zp is not None:
+            return self._as_i32(w, self._per_axis_tensor(w_zp, w.device,
+                                                         wndim, 0))
+        return self._memo(("shift", id(node)), (w, w_zp),
+                          lambda: self._as_i32(w, self._per_axis(w_zp,
+                                                                 wndim, 0)))
+
+    def op_QLinearConv(self, node, x, x_s, x_zp, w, w_s, w_zp, y_s, y_zp,
+                       b=None):
+        """Integer-exact, as ONNX Runtime computes it: the conv of the
+        zero-point-shifted int32 values with an int32 accumulator (float64
+        products, :func:`wide_int_conv`), the int32 bias, then the combined
+        scale ``x_s * w_s / y_s`` (``w_s`` per output channel or not) and
+        the requantize. The bias and the scale broadcast as 4-D (NCHW), as
+        the JAX evaluator's do."""
+        xi = self._as_i32(x, x_zp)
+        wi = self._shifted_weight(node, w, w_zp)
+        with self._no_compute_cast():
+            acc = self.op_Conv(node, xi, wi, None)
+        if b is not None:
+            if _is_host(acc):
+                acc = acc + np.asarray(b, np.int32).reshape(1, -1, 1, 1)
+            else:
+                acc = acc + self._tensor(b, acc.device).to(
+                    torch.int32).reshape(1, -1, 1, 1)
+        ws = self._per_axis(w_s, 4, 1)
+        if _is_host(x_s) and _is_host(w_s) and _is_host(y_s):
+            scale = self._memo(("scale", id(node)), (x_s, w_s, y_s),
+                               lambda: np.asarray(
+                np.asarray(x_s, np.float32) * np.asarray(ws, np.float32)
+                / np.asarray(y_s, np.float32)))
+        else:
+            scale = self._binary(np.divide, torch.div, self._binary(
+                np.multiply, torch.mul, x_s, ws), y_s)
+        accf = acc.astype(np.float32) if _is_host(acc) else acc.float()
+        return self._requantize(accf, scale, y_zp)
+
+    def op_QLinearMatMul(self, node, a, a_s, a_zp, b, b_s, b_zp, y_s, y_zp):
+        """Exact int32 accumulation of the shifted operands; the host fold
+        requantizes in float64, the device one in float32 (as the JAX
+        evaluator does, numpy on the host and jnp on the device)."""
+        ai = self._as_i32(a, a_zp)
+        bi = self._memo(("shift", id(node)), (b, b_zp),
+                        lambda: self._as_i32(b, b_zp))
+        if _is_host(ai) and _is_host(bi):
+            accf = np.matmul(ai.astype(np.int64),
+                             bi.astype(np.int64)).astype(np.float64)
+        else:
+            dev = _device_of(ai, bi)
+            accf = wide_int_matmul(self._tensor(ai, dev),
+                                   self._tensor(bi, dev)).float()
+        if _is_host(a_s) and _is_host(b_s) and _is_host(y_s):
+            scale = self._memo(("scale", id(node)), (a_s, b_s, y_s),
+                               lambda: np.asarray(
+                np.float64(a_s) * np.float64(b_s) / np.float64(y_s)))
+        else:
+            scale = self._binary(np.divide, torch.div, self._binary(
+                np.multiply, torch.mul, a_s, b_s), y_s)
+        return self._requantize(accf, scale, y_zp)
+
+    def op_MatMulInteger(self, node, a, b, a_zp=None, b_zp=None):
+        ai = self._as_i32(a, a_zp)
+        bi = self._as_i32(b, b_zp)
+        if _is_host(ai) and _is_host(bi):
+            return np.matmul(ai, bi).astype(np.int32)
+        dev = _device_of(ai, bi)
+        return wide_int_matmul(self._tensor(ai, dev), self._tensor(bi, dev))
+
+    def op_ConvInteger(self, node, x, w, x_zp=None, w_zp=None):
+        xi = self._as_i32(x, x_zp)
+        wi = self._shifted_weight(node, w, w_zp)
+        with self._no_compute_cast():
+            return self.op_Conv(node, xi, wi, None)
+
+    def _qlinear_binary(self, node, np_fn, torch_fn, a, a_s, a_zp, b, b_s,
+                        b_zp, y_s, y_zp):
+        af = self._dequantize(a, a_s, a_zp, node)
+        bf = self._dequantize(b, b_s, b_zp, node)
+        return self._quantize(self._binary(np_fn, torch_fn, af, bf), y_s,
+                              y_zp, node)
+
+    def op_QLinearAdd(self, node, a, a_s, a_zp, b, b_s, b_zp, y_s, y_zp):
+        return self._qlinear_binary(node, np.add, torch.add, a, a_s, a_zp,
+                                    b, b_s, b_zp, y_s, y_zp)
+
+    def op_QLinearMul(self, node, a, a_s, a_zp, b, b_s, b_zp, y_s, y_zp):
+        return self._qlinear_binary(node, np.multiply, torch.mul, a, a_s,
+                                    a_zp, b, b_s, b_zp, y_s, y_zp)
+
+    def op_QLinearSigmoid(self, node, x, x_s, x_zp, y_s, y_zp):
+        xf = self._dequantize(x, x_s, x_zp, node)
+        return self._quantize(self.op_Sigmoid(node, xf), y_s, y_zp, node)
+
+    def op_QLinearLeakyRelu(self, node, x, x_s, x_zp, y_s, y_zp):
+        xf = self._dequantize(x, x_s, x_zp, node)
+        return self._quantize(self.op_LeakyRelu(node, xf), y_s, y_zp, node)
+
+    def op_QLinearSoftmax(self, node, x, x_s, x_zp, y_s, y_zp):
+        xf = self._dequantize(x, x_s, x_zp, node)
+        return self._quantize(self.op_Softmax(node, xf), y_s, y_zp, node)
+
+    def op_QLinearAveragePool(self, node, x, x_s, x_zp, y_s, y_zp):
+        if node.attr("channels_last", 0):
+            raise UnsupportedOnnxOp("QLinearAveragePool channels_last=1")
+        xf = self._dequantize(x, x_s, x_zp, node)
+        return self._quantize(self.op_AveragePool(node, xf), y_s, y_zp, node)
+
+    def op_QLinearConcat(self, node, y_s, y_zp, *parts):
+        """Variadic (tensor, scale, zero point) triples after the output
+        scale and zero point (the com.microsoft spelling)."""
+        if len(parts) % 3:
+            raise UnsupportedOnnxOp("QLinearConcat malformed inputs")
+        des = [self._dequantize(parts[i], parts[i + 1], parts[i + 2], node)
+               for i in range(0, len(parts), 3)]
+        return self._quantize(self.op_Concat(node, *des), y_s, y_zp, node)
+
+    def op_QGemm(self, node, a, a_s, a_zp, b, b_s, b_zp, c=None,
+                 y_s=None, y_zp=None):
+        """com.microsoft QGemm: the dequantized product (a float32 matmul),
+        an int32 bias at scale ``a_s * b_s``; a float output when
+        ``y_scale`` is absent."""
+        af = self._dequantize(a, a_s, a_zp, node)
+        if node.attr("transA", 0):
+            af = af.T
+        if node.attr("transB", 0):
+            # Transpose the quantized B first, so a per-output-channel
+            # b_scale lands on axis 1 of the [K, N] operand.
+            b = b.T if not _is_host(b) else np.transpose(b)
+        bf = self._dequantize(b, b_s, b_zp, node)
+        alpha = node.attr("alpha", 1.0)
+        if _is_host(af) and _is_host(bf):
+            out = alpha * (af @ bf)
+        else:
+            af, bf = self._promote(af, bf, uniform=True)
+            out = alpha * torch.matmul(af, bf)
+        if c is not None:
+            cf = np.asarray(c, np.float32) if _is_host(c) \
+                else c.to(torch.float32)
+            cf = self._binary(np.multiply, torch.mul, self._binary(
+                np.multiply, torch.mul, cf, a_s), b_s)
+            out = self._binary(np.add, torch.add, out, cf)
+        if y_s is None:
+            return out
+        return self._quantize(out, y_s, y_zp, node)
+
+    def op_QLinearGlobalAveragePool(self, node, x, x_s, x_zp, y_s, y_zp):
+        xf = self._dequantize(x, x_s, x_zp, node)
+        nd = np.ndim(xf)
+        axes = (tuple(range(1, nd - 1)) if node.attr("channels_last", 0)
+                else tuple(range(2, nd)))
+        y = np.mean(xf, axis=axes, keepdims=True) if _is_host(xf) \
+            else self._mean(xf, axes, True)
+        return self._quantize(y, y_s, y_zp, node)
 
     # -- signal --------------------------------------------------------------
 
@@ -898,6 +2099,96 @@ class _Evaluator:
             else torch.fft.fft(xr, n=n, dim=ax)
         return torch.view_as_real(out).float()
 
+    def op_STFT(self, node, signal, frame_step, window=None,
+                frame_length=None):
+        """Opset-17 STFT: frames at ``frame_step`` (an unfold view), times
+        the window, a one-sided real FFT of each; ``[B, frames, bins, 2]``
+        float32. Not the Conv1d-STFT kernel: the JAX evaluator's STFT is a
+        plain framed FFT."""
+        if not node.attr("onesided", 1):
+            raise UnsupportedOnnxOp("STFT onesided=0")
+        if np.ndim(signal) == 3:
+            if signal.shape[-1] != 1:
+                raise UnsupportedOnnxOp("STFT on complex signals")
+            signal = signal[..., 0]
+        step = int(np.asarray(self._host_value(
+            node, frame_step, "frame_step")).reshape(()))
+        if window is not None:
+            w_len = int(window.shape[-1])
+        elif frame_length is not None:
+            w_len = int(np.asarray(self._host_value(
+                node, frame_length, "frame_length")).reshape(()))
+        else:
+            raise UnsupportedOnnxOp("STFT needs window or frame_length")
+        dev = _device_of(signal, window)
+        sig = self._tensor(signal, dev)
+        if sig.dtype not in (torch.float32, torch.float64):
+            sig = sig.float()
+        frames = sig.unfold(-1, w_len, step)
+        if window is not None:
+            frames = frames * self._tensor(window, dev, frames.dtype)
+        return torch.view_as_real(torch.fft.rfft(frames, dim=-1)).float()
+
+    def _cosine_window(self, node, size, a0, a1, a2):
+        """Opset-17 generalized-cosine window: a host constant."""
+        n = int(np.asarray(self._host_value(node, size, "size")).reshape(()))
+        dt = _NP_DTYPES.get(node.attr("output_datatype", 1))
+        if dt is None:
+            raise UnsupportedOnnxOp(
+                f"{node.op_type} output_datatype "
+                f"{node.attr('output_datatype')} is not supported")
+        denom = n if node.attr("periodic", 1) else n - 1
+        if denom <= 0:  # single-sample symmetric window
+            return np.ones(n, dt)
+        x = 2.0 * np.pi * np.arange(n, dtype=np.float64) / denom
+        return (a0 - a1 * np.cos(x) + a2 * np.cos(2.0 * x)).astype(dt)
+
+    def op_HannWindow(self, node, size):
+        return self._cosine_window(node, size, 0.5, 0.5, 0.0)
+
+    def op_HammingWindow(self, node, size):
+        # ONNX pins the exact rational coefficients (not torch's 0.54).
+        return self._cosine_window(node, size, 25.0 / 46.0, 21.0 / 46.0, 0.0)
+
+    def op_BlackmanWindow(self, node, size):
+        return self._cosine_window(node, size, 0.42, 0.5, 0.08)
+
+    def op_MelWeightMatrix(self, node, num_mel_bins, dft_length, sample_rate,
+                           lower_edge_hertz, upper_edge_hertz):
+        """Opset-17 mel filterbank, a host constant, by the ONNX spec's
+        algorithm: mel(f) = 2595 log10(1 + f/700), num_mel_bins + 2 edges
+        equally spaced in mel and snapped to DFT bins, triangles between."""
+        bins, n_dft, sr, lo, hi = (
+            cast(np.asarray(self._host_value(node, v, "a mel parameter"))
+                 .reshape(()))
+            for cast, v in ((int, num_mel_bins), (int, dft_length),
+                            (int, sample_rate), (float, lower_edge_hertz),
+                            (float, upper_edge_hertz)))
+        dt = _NP_DTYPES.get(node.attr("output_datatype", 1))
+        if dt is None:
+            raise UnsupportedOnnxOp(
+                "MelWeightMatrix output_datatype "
+                f"{node.attr('output_datatype')} is not supported")
+        n_spec = n_dft // 2 + 1
+        mel_lo = 2595.0 * np.log10(1.0 + lo / 700.0)
+        mel_hi = 2595.0 * np.log10(1.0 + hi / 700.0)
+        edges = np.arange(bins + 2, dtype=np.float64)
+        edges = edges * (mel_hi - mel_lo) / (bins + 2) + mel_lo
+        hz = 700.0 * (np.power(10.0, edges / 2595.0) - 1.0)
+        freq_bin = ((n_dft + 1) * hz // sr).astype(np.int64)
+        out = np.zeros((n_spec, bins), np.float64)
+        for i in range(bins):
+            left, center, right = freq_bin[i], freq_bin[i + 1], freq_bin[i + 2]
+            if center - left == 0:
+                out[center, i] = 1.0
+            else:
+                for j in range(left, center + 1):
+                    out[j, i] = (j - left) / float(center - left)
+            if right - center > 0:
+                for j in range(center, right):
+                    out[j, i] = (right - j) / float(right - center)
+        return out.astype(dt)
+
     # -- normalization -------------------------------------------------------
 
     def op_BatchNormalization(self, node, x, scale, bias, mean, var):
@@ -924,6 +2215,318 @@ class _Evaluator:
                                                              eps)))
             shift = self.op_Sub(node, r(bias), self.op_Mul(node, r(mean), inv))
         return self.op_Add(node, self.op_Mul(node, x, inv), shift)
+
+
+    def op_LayerNormalization(self, node, x, scale, bias=None):
+        axis = node.attr("axis", -1)
+        eps = node.attr("epsilon", 1e-5)
+        axes = tuple(range(axis % x.ndim, x.ndim))
+        if _is_host(x):
+            mu = np.mean(x, axis=axes, keepdims=True)
+            var = np.mean((x - mu) ** 2, axis=axes, keepdims=True)
+            out = (x - mu) / np.sqrt(var + eps) * scale
+            return out if bias is None else out + bias
+        mu = self._mean(x, axes, True)
+        d = x - mu
+        var = self._mean(d * d, axes, True)
+        out = self._binary(np.multiply, torch.mul, d / torch.sqrt(var + eps),
+                           scale)
+        return out if bias is None else self._binary(np.add, torch.add, out,
+                                                     bias)
+
+    def op_InstanceNormalization(self, node, x, scale, bias):
+        eps = node.attr("epsilon", 1e-5)
+        axes = tuple(range(2, x.ndim))
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        if _is_host(x) and _is_host(scale) and _is_host(bias):
+            mu = np.mean(x, axis=axes, keepdims=True)
+            var = np.mean((x - mu) ** 2, axis=axes, keepdims=True)
+            return (x - mu) / np.sqrt(var + eps) * np.reshape(scale, shape) \
+                + np.reshape(bias, shape)
+        dev = _device_of(x, scale, bias)
+        x = self._tensor(x, dev)
+        mu = self._mean(x, axes, True)
+        d = x - mu
+        var = self._mean(d * d, axes, True)
+        out = self._binary(np.multiply, torch.mul, d / torch.sqrt(var + eps),
+                           self._tensor(scale, dev).reshape(shape))
+        return self._binary(np.add, torch.add, out,
+                            self._tensor(bias, dev).reshape(shape))
+
+    def op_LRN(self, node, x):
+        """Across-channel sum of squares over ``size`` channels (padded with
+        zeros), ``x / (bias + alpha * sum / size) ** beta``."""
+        alpha = node.attr("alpha", 1e-4)
+        beta = node.attr("beta", 0.75)
+        bias = node.attr("bias", 1.0)
+        size = node.attr("size")
+        x = self._tensor(x, _device_of(x))
+        half = size // 2
+        sq = F.pad(x * x, [0, 0] * (x.ndim - 2) + [half, size - 1 - half])
+        sums = sq.unfold(1, size, 1).sum(dim=-1)
+        return x / torch.pow(bias + _true_div(alpha * sums, size), beta)
+
+    def op_Gelu(self, node, x):
+        """``jax.nn.gelu``: the exact form through erfc, or the tanh form
+        (``approximate="tanh"``), each constant at the input's dtype."""
+        approx = node.attr("approximate", b"none")
+        if _is_host(x):
+            from scipy.special import erf as _erf
+
+            return (x * 0.5 * (1.0 + _erf(np.asarray(x) / np.sqrt(2.0)))
+                    ).astype(np.asarray(x).dtype)
+        if not x.is_floating_point():
+            x = x.float()
+
+        def const(v):
+            return float(torch.tensor(v, dtype=torch.float64).to(x.dtype))
+
+        if approx == b"tanh":
+            cdf = 0.5 * (1.0 + torch.tanh(const(np.sqrt(2 / np.pi)) * (
+                x + 0.044715 * (x * x * x))))
+            return x * cdf
+        return (0.5 * x * torch.erfc(-x * const(np.sqrt(0.5)))).to(x.dtype)
+
+    def op_Sign(self, node, x):
+        return _math(x).sign(x)
+
+    def op_Round(self, node, x):
+        # ONNX Round is round-half-to-even, as numpy's and torch's.
+        return _math(x).round(x)
+
+    def op_CumSum(self, node, x, axis):
+        ax = int(np.asarray(self._host_value(node, axis, "axis")).reshape(()))
+        if node.attr("exclusive", 0) or node.attr("reverse", 0):
+            raise UnsupportedOnnxOp("CumSum exclusive/reverse not supported")
+        if _is_host(x):
+            return np.cumsum(x, axis=ax)
+        if x.is_floating_point():
+            return torch.cumsum(x, dim=ax)
+        return torch.cumsum(x, dim=ax).to(_int_acc(x.dtype))
+
+    def op_TopK(self, node, x, k):
+        """The ``k`` largest along ``axis``, ties in index order (the lower
+        index first, as ``lax.top_k`` ranks them): a stable descending
+        sort, which ``torch.topk`` does not promise on the card."""
+        k = int(np.asarray(self._host_value(node, k, "k")).reshape(-1)[0])
+        axis = node.attr("axis", -1)
+        if not node.attr("largest", 1):
+            raise UnsupportedOnnxOp("TopK with largest=0")
+        if _is_host(x):
+            xs = np.moveaxis(np.asarray(x), axis, -1)
+            idx = np.argsort(-xs, axis=-1)[..., :k]
+            vals = np.take_along_axis(xs, idx, axis=-1)
+            return (np.moveaxis(vals, -1, axis),
+                    np.moveaxis(idx.astype(np.int64), -1, axis))
+        vals, idx = torch.sort(x.movedim(axis, -1), dim=-1, descending=True,
+                               stable=True)
+        return (vals[..., :k].movedim(-1, axis),
+                idx[..., :k].to(torch.int32).movedim(-1, axis))
+
+    @staticmethod
+    def _resize_coords(ct: str, d_in: int, d_out: int, scale: float):
+        """ONNX output->input coordinate map for one axis, on the host."""
+        i = np.arange(d_out, dtype=np.float64)
+        if ct == "half_pixel":
+            return (i + 0.5) / scale - 0.5
+        if ct == "pytorch_half_pixel":
+            return (i + 0.5) / scale - 0.5 if d_out > 1 else np.zeros(1)
+        if ct == "asymmetric":
+            return i / scale
+        if ct == "align_corners":
+            if d_out == 1:
+                return np.zeros(1)
+            return i * ((d_in - 1) / (d_out - 1))
+        if ct == "tf_half_pixel_for_nn":
+            return (i + 0.5) / scale
+        raise UnsupportedOnnxOp(
+            f"Resize coordinate_transformation_mode '{ct}'")
+
+    def _gather_axis(self, x, idx: np.ndarray, axis: int):
+        """``x`` at host indices ``idx`` (all in range) along ``axis``."""
+        if _is_host(x):
+            return np.take(x, idx, axis=axis)
+        return x.index_select(axis, torch.from_numpy(idx).to(x.device))
+
+    def _resize(self, node, x, out_shape, sc, mode: str, ct: str,
+                nm: str | None = None):
+        """Shared Resize/Upsample body: per-axis gathers (nearest) and
+        two-point lerps (linear) at host-computed indices and weights, and
+        ``jax.image.resize``'s Keys cubic (cubic). ``nm`` overrides the
+        node's nearest_mode (legacy opset-10 Resize rounds down)."""
+        if mode == "nearest":
+            if nm is None:
+                nm = node.attr("nearest_mode", b"round_prefer_floor")
+                nm = nm.decode() if isinstance(nm, bytes) else nm
+            out = x
+            for ax, (d_in, d_out) in enumerate(zip(x.shape, out_shape)):
+                if d_in == d_out:
+                    continue
+                scale = float(sc[ax]) if sc is not None else d_out / d_in
+                coord = self._resize_coords(ct, d_in, d_out, scale)
+                if nm == "round_prefer_floor":
+                    idx = np.ceil(coord - 0.5)
+                elif nm == "round_prefer_ceil":
+                    idx = np.floor(coord + 0.5)
+                elif nm == "floor":
+                    idx = np.floor(coord)
+                elif nm == "ceil":
+                    idx = np.ceil(coord)
+                else:
+                    raise UnsupportedOnnxOp(f"Resize nearest_mode '{nm}'")
+                idx = np.clip(idx, 0, d_in - 1).astype(np.int64)
+                out = self._gather_axis(out, idx, ax)
+            return out
+        if mode in ("linear", "bilinear"):
+            out = x
+            for ax, (d_in, d_out) in enumerate(zip(x.shape, out_shape)):
+                if d_in == d_out:
+                    continue
+                scale = float(sc[ax]) if sc is not None else d_out / d_in
+                coord = self._resize_coords(ct, d_in, d_out, scale)
+                lo = np.floor(coord)
+                w = (coord - lo).astype(np.float32)
+                lo_i = np.clip(lo, 0, d_in - 1).astype(np.int64)
+                hi_i = np.clip(lo + 1, 0, d_in - 1).astype(np.int64)
+                wshape = [1] * out.ndim
+                wshape[ax] = d_out
+                w = w.reshape(wshape)
+                a = self._gather_axis(out, lo_i, ax)
+                b = self._gather_axis(out, hi_i, ax)
+                out = self._binary(
+                    np.add, torch.add,
+                    self._binary(np.multiply, torch.mul, a, 1.0 - w),
+                    self._binary(np.multiply, torch.mul, b, w))
+            return out
+        if mode == "cubic":
+            if ct != "half_pixel":
+                raise UnsupportedOnnxOp(
+                    f"Resize cubic with coordinate mode '{ct}'")
+            return self._keys_cubic(x, out_shape)
+        raise UnsupportedOnnxOp(f"Resize mode {mode}")
+
+    def _keys_cubic(self, x, out_shape):
+        """``jax.image.resize(x, out_shape, "bicubic")``: Keys' cubic
+        (a = -0.5) at half-pixel centres, antialiased when downsampling, one
+        weight matrix per resized axis (float32, as jax computes it)."""
+        x = self._tensor(x, _device_of(x))
+        if not x.is_floating_point():
+            x = x.float()
+        for d, (n_in, n_out) in enumerate(zip(x.shape, out_shape)):
+            if n_in == n_out:
+                continue
+            scale = 1.0 if n_out == 0 else n_out / n_in
+            inv = np.float32(1.0 / scale)
+            kscale = max(inv, np.float32(1.0))
+            sample = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) \
+                * inv - np.float32(0.0) * inv - np.float32(0.5)
+            t = np.abs(sample[None, :] - np.arange(
+                n_in, dtype=np.float32)[:, None]) / kscale
+            w = ((np.float32(1.5) * t - np.float32(2.5)) * t) * t \
+                + np.float32(1.0)
+            w = np.where(t >= 1.0, ((np.float32(-0.5) * t + np.float32(2.5))
+                                    * t - np.float32(4.0)) * t
+                         + np.float32(2.0), w)
+            w = np.where(t >= 2.0, np.float32(0.0), w).astype(np.float32)
+            total = w.sum(axis=0, keepdims=True)
+            w = np.where(np.abs(total) > 1000.0 * float(np.finfo(
+                np.float32).eps), w / np.where(total != 0, total, 1), 0)
+            w = np.where(((sample >= -0.5) & (sample <= n_in - 0.5))[None, :],
+                         w, 0).astype(np.float32)
+            wt = torch.from_numpy(w).to(x.device, x.dtype)
+            x = torch.tensordot(x, wt, dims=([d], [0])).movedim(-1, d)
+        return x
+
+    def op_Resize(self, node, x, roi=None, scales=None, sizes=None):
+        legacy = bool(self.opset and self.opset < 11)
+        if legacy and scales is None and sizes is None and roi is not None:
+            # Opset-10 spelling: Resize(X, scales).
+            scales, roi = roi, None
+        mode = node.attr("mode", b"nearest")
+        if isinstance(mode, bytes):
+            mode = mode.decode()
+        if legacy:
+            # Resize-10 is Upsample's: asymmetric, floor rounding.
+            ct = "asymmetric"
+        else:
+            ct = node.attr("coordinate_transformation_mode", b"half_pixel")
+            ct = ct.decode() if isinstance(ct, bytes) else ct
+        if ct == "tf_crop_and_resize":
+            raise UnsupportedOnnxOp("Resize tf_crop_and_resize")
+        if node.attr("antialias", 0):
+            raise UnsupportedOnnxOp("Resize antialias=1")
+        if node.attr("exclude_outside", 0):
+            raise UnsupportedOnnxOp("Resize exclude_outside=1")
+        kap = node.attr("keep_aspect_ratio_policy", b"stretch")
+        kap = kap.decode() if isinstance(kap, bytes) else kap
+        if kap != "stretch":
+            raise UnsupportedOnnxOp(
+                f"Resize keep_aspect_ratio_policy '{kap}'")
+        axes_attr = node.attr("axes")
+        if axes_attr is not None:
+            axes = [int(a) % x.ndim
+                    for a in np.asarray(axes_attr).reshape(-1)]
+        else:
+            axes = list(range(x.ndim))
+        sizes = self._host_value(node, sizes, "sizes")
+        scales = self._host_value(node, scales, "scales")
+        sc = None
+        if sizes is not None and np.asarray(sizes).size:
+            sz = [int(s) for s in np.asarray(sizes).reshape(-1)]
+            if len(sz) != len(axes):
+                raise UnsupportedOnnxOp(
+                    f"Resize sizes has {len(sz)} entries for {len(axes)} axes")
+            out_shape = list(x.shape)
+            for a, s_ in zip(axes, sz):
+                out_shape[a] = s_
+        elif scales is not None and np.asarray(scales).size:
+            s_list = np.asarray(scales, np.float64).reshape(-1)
+            if len(s_list) != len(axes):
+                raise UnsupportedOnnxOp(
+                    f"Resize scales has {len(s_list)} entries for "
+                    f"{len(axes)} axes")
+            sc = np.ones(x.ndim, np.float64)
+            for a, s_ in zip(axes, s_list):
+                sc[a] = s_
+            out_shape = [int(np.floor(d * s_)) for d, s_ in zip(x.shape, sc)]
+        else:
+            raise UnsupportedOnnxOp("Resize needs scales or sizes")
+        return self._resize(node, x, out_shape, sc, mode, ct,
+                            nm="floor" if legacy else None)
+
+    def op_Upsample(self, node, x, scales=None):
+        """Deprecated (opset 7 attribute / opset 9 input): asymmetric
+        coordinates with floor rounding."""
+        if scales is None:
+            scales = node.attr("scales")
+        if scales is None:
+            raise UnsupportedOnnxOp("Upsample needs scales")
+        sc = np.asarray(self._host_value(node, scales, "scales"),
+                        np.float64).reshape(-1)
+        out_shape = [int(np.floor(d * s)) for d, s in zip(x.shape, sc)]
+        mode = node.attr("mode", b"nearest")
+        if isinstance(mode, bytes):
+            mode = mode.decode()
+        if mode == "nearest":
+            out = x
+            for ax, (d_in, d_out) in enumerate(zip(x.shape, out_shape)):
+                if d_in == d_out:
+                    continue
+                idx = np.clip(np.floor(np.arange(d_out) / sc[ax]), 0,
+                              d_in - 1).astype(np.int64)
+                out = self._gather_axis(out, idx, ax)
+            return out
+        return self._resize(node, x, out_shape, sc, mode, "asymmetric")
+
+    def op_Einsum(self, node, *xs):
+        """``jnp.einsum`` with float32 accumulation and a float32 result:
+        the promoted operands in float32 (exact for bf16 products)."""
+        eq = node.attr("equation")
+        if isinstance(eq, bytes):
+            eq = eq.decode()
+        if all(_is_host(x) for x in xs):
+            return np.einsum(eq, *xs)
+        return torch.einsum(eq, *(t.float() for t in self._promote(*xs)))
 
 
 def lower(model: Model | bytes | str, compute_dtype=None) -> "OnnxFunction":
@@ -1012,7 +2615,8 @@ class OnnxFunction:
                 if (isinstance(w, torch.Tensor) and w.device.type == "cuda"
                         and w.ndim == 3 and w.shape[1] == 1
                         and w.shape[2] >= 256):
-                    self._eval._conv1d_layout(w, w.device)
+                    self._eval._conv1d_layout(node.outputs[0], w,
+                                               w.device)
 
     def __call__(self, *args, params=None, **feeds):
         if args:

@@ -41,6 +41,15 @@ and ``main_path_v30`` (full-scale BirdNET v3.0 in bf16 over one generated
 60 s recording at 32 kHz, through ``fused_logmel``; bf16 against fp32 on
 one chunk, and ``step_v30``).
 
+Then ``main_path_perch_qdq``: Perch v2 rewritten into the QDQ form of its
+registry ``int8-arm`` variant (:func:`qdq_graph`) through ``analyze`` in
+bf16, ``conv1d_stft`` taking the framer weight a DequantizeLinear makes on
+the card; one chunk against the port's fp32 CPU run and one step with no
+host sync (``torch.cuda.set_sync_debug_mode("error")``). At the end,
+``qlinear_ops`` (the QOperator integer products bit for bit at the
+``int8_ops`` shapes) and ``ops_breadth`` (every case of
+``tests/torch_op_cases.py`` on the card against the CPU).
+
 Each main path runs with the launch counts set to 0 just before it and read
 just after, and must have launched its kernel (the native path: none). Each model's bf16, int8 and
 (v2.4) mixed routes are compared with its fp32 route on one chunk, and each
@@ -497,6 +506,372 @@ def int8_ops_phase(cases, gemms, dev):
         emit(rec)
         results[name] = rec
     return results
+
+
+#: The ops whose float input and initializer weight the QDQ rewrite
+#: quantizes (ONNX Runtime quantize_static's defaults quantize these).
+QDQ_OPS = ("Conv", "MatMul", "Gemm")
+
+
+def qdq_activation_scales(model_bytes: bytes, signal, device="cpu") -> dict:
+    """The uint8 (scale, zero point) of the float input of every Conv,
+    MatMul and Gemm with an initializer weight, from one fp32 pass of
+    ``signal`` ``[B, S]`` through the port: ONNX Runtime's MinMax
+    calibration (the range widened to hold 0, scale = range / 255, zero
+    point = round(-min / scale))."""
+    import numpy as np
+    import torch
+
+    from birda_tpu_torch.onnx.lowering import OnnxFunction, _Evaluator
+    from birda_tpu_torch.onnx.proto import load_model
+
+    model = load_model(model_bytes)
+    g = model.graph
+    targets = {n.inputs[0] for n in g.nodes if n.op_type in QDQ_OPS
+               and len(n.inputs) > 1 and n.inputs[1] in g.initializers}
+    ranges = {}
+
+    class Ranges(_Evaluator):
+        def _store(self, name, val):
+            if name in targets:
+                ranges[name] = (float(val.min()), float(val.max()))
+            return val
+
+    fn = OnnxFunction(model, evaluator=Ranges(g, opset=model.opset))
+    params = {k: torch.from_numpy(np.array(v)).to(device)
+              for k, v in fn.params.items()}
+    with torch.inference_mode():
+        fn(torch.as_tensor(signal, dtype=torch.float32).to(device),
+           params=params)
+    scales = {}
+    for name, (lo, hi) in ranges.items():
+        lo, hi = min(lo, 0.0), max(hi, 0.0)
+        scale = np.float32((hi - lo) / 255.0 or 1.0)
+        scales[name] = (scale, np.uint8(np.clip(np.round(-lo / scale), 0,
+                                                255)))
+    return scales
+
+
+def qdq_graph(model_bytes: bytes, act_scales: dict) -> bytes:
+    """``model_bytes`` rewritten into the QDQ form that ONNX Runtime's
+    ``quantize_static`` emits by default, the form of the registry's
+    ``int8-arm`` variants:
+
+    - the float input of every Conv, MatMul and Gemm with an initializer
+      weight (named in ``act_scales``: name -> (float32 scale, uint8 zero
+      point), from :func:`qdq_activation_scales`) goes through a uint8
+      ``QuantizeLinear -> DequantizeLinear`` pair;
+    - its weight becomes int8, symmetric per output channel (scale
+      ``max|w| / 127``, values in [-127, 127], zero point 0) behind a
+      ``DequantizeLinear`` on the output-channel axis;
+    - its bias becomes int32 at scale ``x_scale * w_scale`` behind a
+      ``DequantizeLinear``.
+
+    A test fixture, not a feature of the package."""
+    import numpy as np
+    from torch_op_cases import encode_attribute
+
+    from birda_tpu_torch.onnx import encode as E
+    from birda_tpu_torch.onnx.proto import load_model
+
+    model = load_model(model_bytes)
+    g = model.graph
+    arrays = {n: t.array for n, t in g.initializers.items()}
+    inits, nodes, dq_of, dropped = {}, [], {}, set()
+
+    def dequantized(name, q, scale, zp, axis=None):
+        inits[f"{name}_quantized"] = q
+        inits[f"{name}_scale"] = scale
+        inits[f"{name}_zero_point"] = zp
+        attrs = [] if axis is None else [E.attr_int("axis", axis)]
+        nodes.append(E.node("DequantizeLinear", [
+            f"{name}_quantized", f"{name}_scale", f"{name}_zero_point"],
+            [f"{name}_dequantized"], name=f"{name}_DequantizeLinear",
+            attrs=attrs))
+        dropped.add(name)
+        return f"{name}_dequantized"
+
+    for node in g.nodes:
+        ins = list(node.inputs)
+        w = arrays.get(ins[1]) if node.op_type in QDQ_OPS \
+            and len(ins) > 1 else None
+        if w is not None and w.dtype == np.float32 and ins[0] in act_scales:
+            x = ins[0]
+            x_s, x_zp = act_scales[x]
+            if x not in dq_of:
+                inits[f"{x}_scale"] = np.asarray(x_s, np.float32)
+                inits[f"{x}_zero_point"] = np.asarray(x_zp, np.uint8)
+                qin = [x, f"{x}_scale", f"{x}_zero_point"]
+                nodes.append(E.node("QuantizeLinear", qin, [f"{x}_quantized"],
+                                    name=f"{x}_QuantizeLinear"))
+                nodes.append(E.node(
+                    "DequantizeLinear", [f"{x}_quantized"] + qin[1:],
+                    [f"{x}_dequantized"], name=f"{x}_DequantizeLinear"))
+                dq_of[x] = f"{x}_dequantized"
+            axis = 1 if node.op_type != "Conv" and not (
+                node.op_type == "Gemm" and node.attr("transB", 0)) else 0
+            others = tuple(i for i in range(w.ndim) if i != axis)
+            shape = [1] * w.ndim
+            shape[axis] = -1
+            w_s = (np.maximum(np.abs(w).max(axis=others), 1e-12)
+                   / 127.0).astype(np.float32)
+            w_q = np.clip(np.rint(w / w_s.reshape(shape)), -127, 127)
+            ins[0] = dq_of[x]
+            ins[1] = dequantized(ins[1], w_q.astype(np.int8), w_s,
+                                 np.zeros(w_s.size, np.int8), axis)
+            if len(ins) > 2 and ins[2] in arrays:
+                b_s = (np.float32(x_s) * w_s).astype(np.float32)
+                b_q = np.round(arrays[ins[2]] / b_s).astype(np.int32)
+                ins[2] = dequantized(ins[2], b_q, b_s,
+                                     np.zeros(b_s.size, np.int32), 0)
+        nodes.append(E.node(node.op_type, ins, list(node.outputs),
+                            name=node.name, domain=node.domain,
+                            attrs=[encode_attribute(k, a)
+                                   for k, a in node.attrs.items()]))
+    kept = {n: a for n, a in arrays.items() if n not in dropped}
+    return E.model(
+        nodes,
+        inputs=[E.value_info(vi.name, [d if d is not None else "batch"
+                                       for d in vi.shape], vi.elem_type)
+                for vi in g.inputs if vi.name not in g.initializers],
+        outputs=[E.value_info(vi.name, [d if d is not None else "batch"
+                                        for d in vi.shape], vi.elem_type)
+                 for vi in g.outputs],
+        initializers=[E.tensor(n, a) for n, a in {**kept, **inits}.items()],
+        opset=model.opset, graph_name=f"{g.name}-qdq")
+
+
+def ops_breadth_phase(dev):
+    """Every case of the op table (``tests/torch_op_cases.py``: the
+    structure, elementwise, reduction, spatial, quantized and signal
+    families, bf16 variants included) through the port on the card against
+    its CPU run: integer, bool, shape, index and quantized outputs bit for
+    bit, floats within the case family's bound. A device value the card run
+    returns must be on the card (no handler falls back to the CPU)."""
+    import torch
+    import torch_op_cases as oc
+
+    from birda_tpu_torch.onnx.proto import load_model
+
+    t0 = time.perf_counter()
+    failed, ops, runs = [], set(), 0
+    for c in oc.all_cases():
+        ops.update(n.op_type for n in load_model(c.model).graph.nodes)
+        for bf16 in ((False, True) if c.bf16 else (False,)):
+            model, feeds = oc.bf16_model(c) if bf16 else (c.model, c.feeds)
+            card, _ = oc.run_port(model, feeds, bf16, dev)
+            host, _ = oc.run_port(model, feeds, bf16, "cpu")
+            runs += 1
+            for i, (g, w) in enumerate(zip(card, host)):
+                why = oc.mismatch(g, w, c.family, bf16)
+                if why is None and isinstance(g, torch.Tensor) \
+                        and g.device.type != "cuda":
+                    why = f"on {g.device}"
+                if why is not None:
+                    failed.append(f"{c.id}{'-bf16' if bf16 else ''}"
+                                  f"[{i}]: {why}")
+    torch.cuda.synchronize()
+    emit({"phase": "ops_breadth", "cases": runs, "op_types": len(ops),
+          "failed": failed[:20], "n_failed": len(failed),
+          "seconds": time.perf_counter() - t0})
+    check(not failed, f"ops_breadth: {len(failed)} cases differ: "
+          f"{failed[:5]}")
+
+
+def qlinear_ops_phase(cases, int8_results, dev):
+    """QLinearConv and ConvInteger at the widest 1x1, Perch's deepest dense
+    3x3 and the largest 3x3 depthwise conv, and QLinearMatMul,
+    MatMulInteger and QGemm at the head Gemm [32,1280]x[1280,1024], on the
+    card: uint8 activations with nonzero zero points, int8 weights holding
+    -128 (per-channel scales and zero points), each conv's padding. The
+    integer products bit for bit against the port's CPU run (float64
+    products there, float64 on the card too: the wide-integer route); QGemm
+    (a float product of dequantized values, as the JAX evaluator computes
+    it) within 1e-5 of its largest magnitude. Each timed beside the int8_ops
+    route and the bf16 call of the same shape."""
+    import numpy as np
+    import torch
+
+    import torch_op_cases as oc
+    from birda_tpu_torch.onnx import encode as E
+    from birda_tpu_torch.onnx.lowering import lower
+
+    rng = np.random.default_rng(SEED)
+
+    def one_node(op, ins, feeds, inits, attrs=(), domain=""):
+        return oc.graph(op, ins, feeds, inits, attrs, opset=13,
+                        domain=domain)[0]
+
+    def run(name, op, mb, x, exact, extra):
+        card, _ = oc.run_port(mb, [x], device=dev)
+        host, _ = oc.run_port(mb, [x], device="cpu")
+        g, w = oc.to_numpy(card[0]), oc.to_numpy(host[0])
+        if exact:
+            ok = bool(np.array_equal(g, w))
+        else:
+            ok = float(np.abs(g - w).max()) <= 1e-5 * float(np.abs(w).max())
+        fn = lower(mb)
+        fn.params = {k: torch.from_numpy(np.array(v)).to(dev)
+                     for k, v in fn.params.items()}
+        xd = torch.from_numpy(x).to(dev)
+        base = int8_results.get(name, {})
+        rec = {"phase": "qlinear_ops", "case": name, "op": op,
+               "bit_exact" if exact else "within_1e-5": ok,
+               "out_dtype": str(g.dtype), **extra,
+               "ms": timed_ms(lambda: fn(xd)),
+               "int8_ops_route": base.get("route"),
+               "int8_ops_ms": base.get("ms"), "bf16_ms": base.get("bf16_ms")}
+        emit(rec)
+        check(ok, f"qlinear_ops {name} {op}: card against CPU")
+        return rec
+
+    def uint8(shape):
+        return rng.integers(0, 256, shape).astype(np.uint8)
+
+    def int8(shape):
+        v = rng.integers(-128, 128, shape).astype(np.int8)
+        v.reshape(-1)[0] = -128
+        return v
+
+    results = []
+    for name in ("widest_1x1", "perch_deepest_dense_3x3", "depthwise_3x3"):
+        if name not in cases:
+            continue
+        xs, ws, strides, pads, dil, group = cases[name]
+        x, w = uint8(xs), int8(ws)
+        c_out = ws[0]
+        attrs = [E.attr_ints("kernel_shape", list(ws[2:])),
+                 E.attr_ints("strides", list(strides)),
+                 E.attr_ints("dilations", list(dil)),
+                 E.attr_ints("pads", [p[0] for p in pads]
+                             + [p[1] for p in pads]),
+                 E.attr_int("group", group)]
+        w_zp = rng.integers(-3, 4, c_out).astype(np.int8)
+        extra = {"x": list(xs), "w": list(ws), "group": group,
+                 "pads": [list(p) for p in pads]}
+        qconv = one_node(
+            "QLinearConv", ["x", "xs", "xz", "w", "ws", "wz", "ys", "yz",
+                            "b"], {"x": x},
+            {"xs": np.float32(0.02), "xz": np.uint8(131), "w": w,
+             "ws": rng.uniform(0.002, 0.02, c_out).astype(np.float32),
+             "wz": w_zp, "ys": np.float32(0.5), "yz": np.uint8(120),
+             "b": rng.integers(-5000, 5000, c_out).astype(np.int32)}, attrs)
+        results.append(run(name, "QLinearConv", qconv, x, True, extra))
+        cint = one_node("ConvInteger", ["x", "w", "xz", "wz"], {"x": x},
+                         {"w": w, "xz": np.uint8(131), "wz": w_zp}, attrs)
+        results.append(run(name, "ConvInteger", cint, x, True, extra))
+    a, b = uint8((BATCH, 1280)), int8((1280, 1024))
+    extra = {"a": [BATCH, 1280], "b": [1280, 1024]}
+    b_zp = rng.integers(-3, 4, 1024).astype(np.int8)
+    qmm = one_node("QLinearMatMul",
+                    ["a", "as", "az", "b", "bs", "bz", "ys", "yz"], {"a": a},
+                    {"as": np.float32(0.02), "az": np.uint8(128), "b": b,
+                     "bs": np.float32(0.01), "bz": np.int8(0),
+                     "ys": np.float32(2.0), "yz": np.uint8(128)})
+    results.append(run("gemm_head", "QLinearMatMul", qmm, a, True, extra))
+    mmi = one_node("MatMulInteger", ["a", "b", "az", "bz"], {"a": a},
+                    {"b": b, "az": np.uint8(128), "bz": b_zp})
+    results.append(run("gemm_head", "MatMulInteger", mmi, a, True, extra))
+    qgemm = one_node(
+        "QGemm", ["a", "as", "az", "b", "bs", "bz", "c"], {"a": a},
+        {"as": np.float32(0.02), "az": np.uint8(128), "b": b,
+         "bs": rng.uniform(0.002, 0.02, 1024).astype(np.float32),
+         "bz": np.zeros(1024, np.int8),
+         "c": rng.integers(-5000, 5000, 1024).astype(np.int32)},
+        domain="com.microsoft")
+    results.append(run("gemm_head", "QGemm", qgemm, a, False, extra))
+    return results
+
+
+def perch_qdq_phase(tmp: Path, onnx_perch, labels_path, labels, chunk,
+                    fp32_float, dev):
+    """Perch v2 in its ``int8-arm`` QDQ form (:func:`qdq_graph` of the
+    full-scale graph, the activation scales from one fp32 pass of four
+    segments on the card): ``analyze(device="auto", precision="bf16")`` over
+    one 60 s recording at 32 kHz, which must launch ``conv1d_stft`` on the
+    framer's weight that a DequantizeLinear makes on the card each step.
+    Then one 32-row chunk on the card in bf16 against the port's fp32 CPU
+    run of the same graph (relative to the top score, within
+    ``SCORE_DRIFT_BOUND``), with its top-1 agreement with the float graph's
+    fp32 scores; one step of the lowered graph under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no handler reads a device
+    value on the host); and the steady step (``step_perch_qdq``). Returns
+    the launch counts."""
+    import traceback
+
+    import numpy as np
+    import torch
+
+    from birda_tpu_torch.inference.classifier import BirdClassifier
+    from birda_tpu_torch.models.contracts import ModelFamily, contract_for
+    from birda_tpu_torch.models.zoo import onnx_model
+
+    contract = contract_for(ModelFamily.PERCH_V2)
+    n, seg = contract.num_classes, contract.sample_count
+    t0 = time.perf_counter()
+    calib = chunk[:4 * seg].reshape(4, seg)
+    data = Path(onnx_perch).read_bytes()
+    scales = qdq_activation_scales(data, calib, device=dev)
+    qdq = qdq_graph(data, scales)
+    path = tmp / "perch_v2_int8_arm.onnx"
+    path.write_bytes(qdq)
+    emit({"phase": "fixture", "graph": "perch_v2_int8_arm (QDQ)",
+          "quantized_inputs": len(scales), "onnx_bytes": len(qdq),
+          "float_onnx_bytes": len(data),
+          "seconds": time.perf_counter() - t0})
+    wav = tmp / "perch_qdq_32k.wav"
+    write_wav(wav, recording(32_000, 60.0, SEED + 60), 32_000)
+    launches, _ = main_path(
+        "main_path_perch_qdq", "conv1d_stft", [wav], path, labels_path,
+        "perch-v2", device="auto", min_confidence=PERCH_MIN_CONFIDENCE,
+        top_k=PERCH_TOP_K)
+
+    scores, seconds = {}, {}
+    for name, dtype, where in (("card_bf16", torch.bfloat16, "cuda"),
+                               ("cpu_fp32", None, "cpu")):
+        clf = BirdClassifier(onnx_model(path, contract, labels, dtype=dtype),
+                             device=where, min_confidence=0.0, top_k=n)
+        t = time.perf_counter()
+        scores[name] = full_scores(
+            clf.chunk_runner(BATCH, seg).predict_chunk(chunk, BATCH), n)
+        seconds[name] = time.perf_counter() - t
+        del clf
+    top = float(scores["cpu_fp32"].max())
+    drift = float(np.abs(scores["card_bf16"] - scores["cpu_fp32"]).max())
+
+    model = onnx_model(path, contract, labels, dtype=torch.bfloat16)
+    x = torch.from_numpy(np.ascontiguousarray(
+        chunk[:BATCH * seg].reshape(BATCH, seg))).to(dev)
+    with torch.inference_mode():
+        model.apply(x)  # params to the card, host folds copied once
+        torch.cuda.synchronize()
+        sync = None
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            model.apply(x)
+        except RuntimeError as e:
+            frames = [f"{f.filename.split('birda_tpu_torch/')[-1]}:{f.lineno}"
+                      f" {f.name}" for f in traceback.extract_tb(
+                          e.__traceback__) if "birda_tpu_torch" in f.filename]
+            sync = {"error": str(e)[:300], "where": frames[-3:]}
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    emit({"phase": "perch_qdq_chunk", "rows": BATCH, "classes": n,
+          "max_score_drift": drift, "max_fp32_score": top,
+          "drift_over_max_score": drift / top, "bound": SCORE_DRIFT_BOUND,
+          "card_vs_cpu": agreement(scores["card_bf16"], scores["cpu_fp32"]),
+          "top1_agreement_with_float_graph": agreement(
+              scores["card_bf16"], fp32_float)["top1_agreement"],
+          "cpu_fp32_top1_agreement_with_float_graph": agreement(
+              scores["cpu_fp32"], fp32_float)["top1_agreement"],
+          "first_chunk_s": seconds, "sync_check": sync or "no sync"})
+    check(np.isfinite(drift) and drift / top <= SCORE_DRIFT_BOUND,
+          f"perch_qdq_chunk: drift {drift / top}")
+    check(sync is None, f"perch_qdq_chunk: a host sync in the step: {sync}")
+    steady_step("step_perch_qdq", BirdClassifier(
+        model, device="cuda", min_confidence=0.0, top_k=5), chunk)
+    return launches
 
 
 def write_graph(spec, tmp: Path):
@@ -1279,6 +1654,8 @@ def main() -> int:
     from birda_tpu_torch.ops import _build
 
     dev = torch.device("cuda", 0)
+    # The op case table (numpy and the port's encoder only).
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 
     # -- 1. card and kernel builds ----------------------------------------
     smi = subprocess.run(
@@ -1385,6 +1762,9 @@ def main() -> int:
                           step_phase="step_int8_perch")
         convs_perch, _ = int8_graph_report(
             "perch", onnx_perch, fullscale.PERCH_V2_SPEC.sample_count)
+        launches_perch_qdq = perch_qdq_phase(
+            tmp, onnx_perch, labels_perch_path, labels_perch, chunk_perch,
+            fp32_perch, dev)
 
         # -- 4. the secondary heads --------------------------------------
         launches_bat = bat_phase(tmp, onnx24, labels24_path, labels24)
@@ -1407,7 +1787,11 @@ def main() -> int:
         # the split fp32 route.
         cases["grouped_depth_1089"] = ((BATCH, 132, 64, 16), (4, 33, 33, 1),
                                        (1, 1), ((16, 16), (0, 0)), (1, 1), 4)
-        int8_ops_phase(cases, gemms, dev)
+        int8_results = int8_ops_phase(cases, gemms, dev)
+
+        # -- 6. the ported op families, and the quantized integer ops -----
+        qlinear_ops_phase(cases, int8_results, dev)
+        ops_breadth_phase(dev)
 
     print(smi, flush=True)
     emit({"kernels": [
@@ -1425,7 +1809,9 @@ def main() -> int:
                      launches_jobs=launches_jobs.get("fused_logmel", 0),
                      launches_sharded=launches_sharded.get("fused_logmel",
                                                            0),
-                     launches_v30=launches_v30.get("fused_logmel", 0)),
+                     launches_v30=launches_v30.get("fused_logmel", 0),
+                     launches_perch_qdq=launches_perch_qdq.get(
+                         "fused_logmel", 0)),
         kernel_entry("conv1d_stft", "birda_tpu_torch/csrc/conv1d_stft.cu",
                      "birda_tpu/ops/stft_conv.py:121",
                      launches_perch.get("conv1d_stft", 0),
@@ -1438,7 +1824,9 @@ def main() -> int:
                      launches_native=launches_native.get("conv1d_stft", 0),
                      launches_jobs=launches_jobs.get("conv1d_stft", 0),
                      launches_sharded=launches_sharded.get("conv1d_stft", 0),
-                     launches_v30=launches_v30.get("conv1d_stft", 0)),
+                     launches_v30=launches_v30.get("conv1d_stft", 0),
+                     launches_perch_qdq=launches_perch_qdq.get(
+                         "conv1d_stft", 0)),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -205,7 +205,9 @@ def test_integer_routes_give_shapes_on_meta():
 @pytest.mark.parametrize("op", ["MatMul", "Gemm"])
 def test_integer_matmul_and_gemm_nodes_are_exact(op):
     """The evaluator's MatMul and Gemm of int8 operands sum exactly and, as
-    the JAX evaluator's preferred element type, return float32."""
+    the JAX evaluator's preferred element type, return float32. Wider
+    integer operands (zero-point shifted 8-bit values, up to 255 in
+    magnitude) take the float64 route and are exact too."""
     import fixtures_onnx as fo
 
     a, b = _operands((5, 40), (40, 6), "extreme")
@@ -220,8 +222,13 @@ def test_integer_matmul_and_gemm_nodes_are_exact(op):
     assert got.dtype == torch.float32
     want = a.astype(np.float64) @ b.astype(np.float64)
     assert np.array_equal(got.numpy(), want.astype(np.float32))
-    with pytest.raises(tl.UnsupportedOnnxOp, match="exact route"):
-        ev.op_MatMul(node, torch.from_numpy(a).int(), b.astype(np.int32))
+    wide_a = a.astype(np.int32) * 2 + 1  # |v| up to 255
+    wide_b = b.astype(np.int32) * 2 - 1
+    with ev._no_compute_cast():
+        got = ev.op_MatMul(node, torch.from_numpy(wide_a), wide_b)
+    want = wide_a.astype(np.float64) @ wide_b.astype(np.float64)
+    assert got.dtype == torch.float32
+    assert np.array_equal(got.numpy(), want.astype(np.float32))
 
 
 @pytest.mark.slow
