@@ -34,11 +34,14 @@ environment of values, the same design as the JAX evaluator:
   MatMulInteger, up to 255 in magnitude) take float64 products on every
   device (:func:`wide_int_conv`, :func:`wide_int_matmul`). None rounds.
 
-The op set is the JAX evaluator's from the elementwise ops through the
-quantized and signal ops (everything the full-scale BirdNET v2.4 / v3.0 and
-Perch v2 graphs emit, their QDQ forms, and the common glue of other
-exports), plus the fused spectrogram front-end ``BirdaFusedMelFrontend``
-that :func:`maybe_fuse_frontend` splices in for bf16 compute. In bf16 two
+The op set is the JAX evaluator's, all 178 handlers: everything the
+full-scale BirdNET v2.4 / v3.0 and Perch v2 graphs emit, their QDQ forms,
+the common glue of other exports, the transformer family (opset-23
+Attention and the com.microsoft fused ops), the static control flow
+(If/Loop/Scan, run at call time with their bodies unrolled, as a jit trace
+unrolls them) and the recurrent layers (unrolled step by step); plus the
+fused spectrogram front-end ``BirdaFusedMelFrontend`` that
+:func:`maybe_fuse_frontend` splices in for bf16 compute. In bf16 two
 hand-written CUDA kernels carry the front-ends: the fused node runs
 ``ops/stft_conv.py::fused_logmel``, and a single-channel long-kernel Conv1d
 the fusion pass did not take (the unfused Conv1d-STFT, Perch v2's framing
@@ -157,6 +160,24 @@ _DEVICE_DTYPE = {
 }
 
 
+#: The numpy dtype of each device dtype numpy holds (not bfloat16).
+_NP_OF_TORCH = {
+    torch.float32: np.float32, torch.float16: np.float16,
+    torch.float64: np.float64, torch.uint8: np.uint8, torch.int8: np.int8,
+    torch.uint16: np.uint16, torch.int16: np.int16, torch.int32: np.int32,
+    torch.int64: np.int64, torch.bool: np.bool_, torch.uint32: np.uint32,
+    torch.uint64: np.uint64,
+}
+
+#: Unsigned dtypes for which PyTorch has no bitwise or shift kernels: their
+#: bitwise ops run on int64 (which holds every value) and convert back.
+_WIDE_UNSIGNED = (torch.uint16, torch.uint32, torch.uint64)
+
+#: Ops whose bodies read the enclosing graph's values: never folded as a
+#: function of their own inputs.
+_CONTROL_FLOW = frozenset({"If", "Loop", "Scan"})
+
+
 def _as_host(v):
     """A handler's value for a node whose inputs were all host values: a
     tensor it computed on the CPU comes back as numpy (bf16, which numpy
@@ -198,10 +219,50 @@ def _fill_value(dt: torch.dtype):
     return info.min if dt.is_signed else info.max
 
 
+def _gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=False)``: ``0.5 x erfc(-x / sqrt 2)``,
+    its constant at the input's dtype (an integer input as float32)."""
+    if not x.is_floating_point():
+        x = x.float()
+    c = float(torch.tensor(np.sqrt(0.5), dtype=torch.float64).to(x.dtype))
+    return (0.5 * x * torch.erfc(-x * c)).to(x.dtype)
+
+
+def _det(x: torch.Tensor) -> torch.Tensor:
+    """Determinant of ``[..., n, n]`` by LU with partial pivoting, one
+    elimination step after another in plain tensor ops: no library
+    factorization, so nothing is read back to the host (a MAGMA route may
+    be). A zero pivot gives 0."""
+    a = x.clone() if x.is_floating_point() else x.float()
+    n = a.shape[-1]
+    batch = a.shape[:-2]
+    det = torch.ones(batch, dtype=a.dtype, device=a.device)
+    for k in range(n):
+        p = a[..., k:, k].abs().argmax(-1) + k
+        idx = p[..., None, None].expand(*batch, 1, n)
+        row_p = a.gather(-2, idx)
+        row_k = a[..., k:k + 1, :].clone()
+        a.scatter_(-2, idx, row_k)
+        a[..., k:k + 1, :] = row_p
+        det = torch.where(p == k, det, -det)
+        piv = a[..., k, k]
+        det = det * piv
+        if k + 1 < n:
+            f = torch.where(piv[..., None] == 0, 0.0,
+                            a[..., k + 1:, k] / piv[..., None])
+            a[..., k + 1:, :] -= f[..., None] * a[..., k:k + 1, :]
+    return det
+
+
 class _TorchMath:
-    """The jax.numpy functions the unary handlers call, on a tensor and
-    Python scalars (weak, as in jax.numpy): with it a handler reads as its
-    JAX counterpart, ``m = _math(x)`` in place of ``m = self._lib(x)``."""
+    """The jax.numpy functions the handlers call, on tensors and Python
+    scalars (weak, as in jax.numpy): with it a handler reads as its JAX
+    counterpart, ``m = _math(x)`` or ``m, xs = self._lib(*xs)`` in place of
+    ``m = self._lib(*xs)``. An instance carries the device its
+    constructors (``zeros``, ``arange``) make tensors on."""
+
+    def __init__(self, device=None):
+        self.device = device
 
     exp, log, log1p, sqrt, abs = (torch.exp, torch.log, torch.log1p,
                                   torch.sqrt, torch.abs)
@@ -245,6 +306,55 @@ class _TorchMath:
         s = torch.sign(x)
         return torch.where(torch.isnan(x), x, s) if x.is_floating_point() \
             else s
+
+    reshape, moveaxis, stack = torch.reshape, torch.movedim, torch.stack
+
+    @staticmethod
+    def mean(x, axis=None, keepdims=False):
+        return _Evaluator._mean(x, _axes(axis), keepdims)
+
+    @staticmethod
+    def sum(x, axis=None, keepdims=False):
+        return _Evaluator._torch_reduce("sum", x, _axes(axis), keepdims)
+
+    @staticmethod
+    def repeat(x, n):
+        # np.repeat without an axis repeats the flattened elements.
+        return torch.repeat_interleave(x.reshape(-1), n)
+
+    @staticmethod
+    def matmul(a, b):
+        dt = torch.promote_types(a.dtype, b.dtype)
+        return torch.matmul(a.to(dt), b.to(dt))
+
+    @staticmethod
+    def take_along_axis(x, idx, axis):
+        """jnp.take_along_axis: ``idx`` broadcasts against ``x``, negative
+        indices count from the end, one still out of range reads the fill
+        value (NaN for floats), so no index is checked on the host."""
+        n = x.shape[axis]
+        idx = torch.where(idx < 0, idx + n, idx)
+        out = torch.take_along_dim(x, idx.clamp(0, max(n - 1, 0)), axis)
+        return torch.where((idx >= 0) & (idx < n), out,
+                           _fill_value(x.dtype))
+
+    @staticmethod
+    def mul_f32(c, x):
+        """``c * x`` for a numpy float32 scalar ``c``, strongly typed in
+        jnp: the product at ``x``'s dtype promoted with float32. ``c`` goes
+        in as a Python float, so no host value is copied to the card."""
+        return x.to(torch.promote_types(x.dtype, torch.float32)) * float(c)
+
+    def zeros(self, shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def arange(self, n):
+        return torch.arange(n, device=self.device)
+
+
+def _axes(axis):
+    """A jnp ``axis`` argument as a tuple of dims (None: every dim)."""
+    return (axis,) if isinstance(axis, int) else axis
 
 
 def _math(*xs):
@@ -512,8 +622,19 @@ class _Evaluator:
     def __init__(self, graph, compute_dtype=None, opset: int = 0):
         self.graph = graph
         self.opset = opset
-        #: Per-thread state (the compute-cast suppression).
+        #: Per-thread state: the stack of live environments (the outer
+        #: scope of If/Loop/Scan bodies), the compute-cast suppression and
+        #: the loop steps a body runs in.
         self._tls = threading.local()
+        #: Names of subgraph initializers lifted into OnnxFunction.params
+        #: (they reach the bodies through the outer environment).
+        self.lifted_params: set = set()
+        #: Body evaluators by id(graph), made once under the lock.
+        self._sub_evs: dict = {}
+        self._sub_lock = threading.Lock()
+        #: Loop iteration numbers, one object per value, so that a fold on
+        #: an iteration number is the same fold at every call.
+        self._iters: dict = {}
         #: torch.bfloat16 for mixed precision, None for the fp32 route.
         self.compute_dtype = compute_dtype
         self.const: dict[str, np.ndarray] = {
@@ -577,26 +698,38 @@ class _Evaluator:
         env.update(feeds)
         self._persistent.update(
             id(v) for v in env.values() if isinstance(v, np.ndarray))
+        return self._execute(env)
+
+    def _execute(self, env: dict) -> dict:
+        """Run every node over ``env`` (pushed on this thread's stack of
+        live environments for the bodies of control-flow nodes)."""
         env[""] = None
-        with _full_precision():
-            for node in self.graph.nodes:
-                if node.op_type == "Constant":
-                    continue
-                handler = getattr(self, f"op_{node.op_type}", None)
-                if handler is None:
-                    raise UnsupportedOnnxOp(
-                        f"ONNX op '{node.op_type}' (node '{node.name}') "
-                        "is not supported")
-                args = [
-                    self._fetch(node, pos, i, env[i]) if i else None
-                    for pos, i in enumerate(node.inputs)
-                ]
-                result = self._call(node, handler, args)
-                if not isinstance(result, tuple):
-                    result = (result,)
-                for out_name, val in zip(node.outputs, result):
-                    if out_name:
-                        env[out_name] = self._store(out_name, val)
+        stack = getattr(self._tls, "envs", None)
+        if stack is None:
+            stack = self._tls.envs = []
+        stack.append(env)
+        try:
+            with _full_precision():
+                for node in self.graph.nodes:
+                    if node.op_type == "Constant":
+                        continue
+                    handler = getattr(self, f"op_{node.op_type}", None)
+                    if handler is None:
+                        raise UnsupportedOnnxOp(
+                            f"ONNX op '{node.op_type}' (node '{node.name}') "
+                            "is not supported")
+                    args = [
+                        self._fetch(node, pos, i, env[i]) if i else None
+                        for pos, i in enumerate(node.inputs)
+                    ]
+                    result = self._call(node, handler, args)
+                    if not isinstance(result, tuple):
+                        result = (result,)
+                    for out_name, val in zip(node.outputs, result):
+                        if out_name:
+                            env[out_name] = self._store(out_name, val)
+        finally:
+            stack.pop()
         return env
 
     def _constant(self, v) -> bool:
@@ -610,8 +743,9 @@ class _Evaluator:
     def _call(self, node, handler, args):
         """One node's handler. A node whose inputs are all host values
         folds on the host: a tensor it returns comes back as numpy; and
-        where they are all constants, once (:meth:`_memo`)."""
-        if not _all_host(*args):
+        where they are all constants, once (:meth:`_memo`). A control-flow
+        node is never folded: its body reads the enclosing graph."""
+        if node.op_type in _CONTROL_FLOW or not _all_host(*args):
             return handler(node, *args)
 
         def fold():
@@ -626,9 +760,13 @@ class _Evaluator:
         (:meth:`_constant`) and the same object as on the last call under
         ``key``; its arrays are kept persistent, so a device copy of them is
         made once (as a jit trace folds constants once). Computed afresh
-        otherwise."""
+        otherwise. Inside a Loop or Scan body the key holds the loop steps
+        (:meth:`_steps`): each iteration keeps its own fold, so a fold on
+        the iteration number gives that iteration's value and is made once
+        per iteration, not once per call."""
         if not all(self._constant(v) for v in inputs):
             return make()
+        key = (key, self._steps())
         hit = self._memos.get(key)
         if hit is not None and len(hit[0]) == len(inputs) and all(
                 a is b for a, b in zip(hit[0], inputs)):
@@ -639,6 +777,11 @@ class _Evaluator:
             id(v) for v in (val if isinstance(val, tuple) else (val,))
             if isinstance(v, np.ndarray))
         return val
+
+    def _steps(self) -> tuple:
+        """The loop steps this thread's run of this evaluator is inside
+        (one per enclosing Loop or Scan; empty at the top level)."""
+        return getattr(self._tls, "steps", ())
 
     @staticmethod
     def _host_value(node, x, what: str):
@@ -707,6 +850,17 @@ class _Evaluator:
         if _is_host(a) and _is_host(b):
             return np_fn(a, b)
         return torch_fn(*self._promote(a, b))
+
+    def _lib(self, *xs):
+        """(math, operands) of a handler written once for host and device
+        values, as the JAX evaluator's ``m = self._lib(*xs)``: numpy and the
+        operands as they are when all are host values; else
+        :class:`_TorchMath` on their device and the operands as tensors
+        there (:meth:`_promote`: a constant's device copy is made once)."""
+        if _all_host(*xs):
+            return np, xs
+        dev = _device_of(*xs)
+        return _TorchMath(dev), self._promote(*xs, dev=dev)
 
     def _where(self, cond, a, b):
         if _is_host(cond) and _is_host(a) and _is_host(b):
@@ -1086,8 +1240,8 @@ class _Evaluator:
         return x.to(_DEVICE_DTYPE[np.dtype(to)])
 
     def op_Shape(self, node, x):
-        """A host constant. Opset >= 15 start/end (negative counts from the
-        back; both clamp to [0, rank])."""
+        """A host constant, one array per shape. Opset >= 15 start/end
+        (negative counts from the back; both clamp to [0, rank])."""
         rank = len(np.shape(x))
 
         def _clamp(v, default):
@@ -1100,10 +1254,14 @@ class _Evaluator:
 
         start = _clamp(node.attr("start"), 0)
         end = _clamp(node.attr("end"), rank)
-        return np.asarray(tuple(x.shape)[start:end], np.int64)
+        # One array per shape, so that the folds on it are made once too.
+        dims = tuple(x.shape)[start:end]
+        return self._memo(("shape", id(node), dims), [],
+                          lambda: np.asarray(dims, np.int64))
 
     def op_Size(self, node, x):
-        return np.asarray(int(np.prod(x.shape)), np.int64)
+        return self._memo(("size", id(node), tuple(x.shape)), [],
+                          lambda: np.asarray(int(np.prod(x.shape)), np.int64))
 
     def op_Reshape(self, node, x, shape):
         shape = [int(s) for s in np.asarray(
@@ -1137,11 +1295,20 @@ class _Evaluator:
         """``jnp.take(x, idx, axis)``: negative indices count from the end;
         an index still out of range gives jnp's fill value (NaN, the
         smallest signed or largest unsigned integer, True), where
-        ``index_select`` would fault on the card."""
+        ``index_select`` would fault on the card. A host scalar index (a
+        Loop body's iteration number) selects a view: no index is copied
+        to the card."""
         dev = _device_of(x, idx)
         x = self._tensor(x, dev)
         ax = axis % x.ndim
         n = x.shape[ax]
+        if _is_host(idx) and np.ndim(idx) == 0:
+            i = int(idx) + (n if int(idx) < 0 else 0)
+            if 0 <= i < n:
+                return x.select(ax, i)
+            return torch.full(x.shape[:ax] + x.shape[ax + 1:],
+                              _fill_value(x.dtype), dtype=x.dtype,
+                              device=dev)
         it = self._tensor(idx, dev).to(torch.int64)
         it = torch.where(it < 0, it + n, it)
         valid = (it >= 0) & (it < n)
@@ -1274,8 +1441,11 @@ class _Evaluator:
             return F.pad(x, flat, value=cv)
         for a, (lo, hi) in enumerate(pad_width):
             if lo or hi:
-                idx = np.pad(np.arange(x.shape[a]), (lo, hi), mode=np_mode)
-                x = x.index_select(a, torch.from_numpy(idx).to(x.device))
+                idx = self._memo(
+                    ("pad", id(node), a, x.shape[a], lo, hi, np_mode), [],
+                    lambda n=x.shape[a], lo=lo, hi=hi: np.pad(
+                        np.arange(n), (lo, hi), mode=np_mode))
+                x = x.index_select(a, self._tensor(idx, x.device))
         return x
 
     def op_Flatten(self, node, x):
@@ -1715,8 +1885,8 @@ class _Evaluator:
         return out
 
     def _pool(self, node, x, kind: str):
-        """``lax.reduce_window`` over the spatial axes (``kind`` max or
-        avg), padding with the reduction's identity, as the JAX evaluator:
+        """``lax.reduce_window`` over the spatial axes (``kind`` max, avg or
+        sum), padding with the reduction's identity, as the JAX evaluator:
         each axis is padded, unfolded into windows of the dilated kernel at
         the stride, and reduced. ``ceil_mode`` extends the high padding to
         cover the last window ONNX keeps; average pooling divides by the
@@ -1766,6 +1936,8 @@ class _Evaluator:
         if kind == "max":
             return window(x, pads, -float("inf"), "max")
         out = window(x, pads, 0.0, "sum")
+        if kind == "sum":
+            return out
         ones = torch.ones(x.shape, dtype=x.dtype, device=x.device)
         if node.attr("count_include_pad", 0):
             # The explicit padding counts, the ceil-mode extension does not.
@@ -1855,11 +2027,15 @@ class _Evaluator:
         ndim = getattr(x, "ndim", 0)
         axis = node.attr("axis", 1)
         if _all_host(x, scale, zp):
-            scale = self._per_axis(scale, ndim, axis)
-            zp = self._per_axis(zp, ndim, axis)
-            xf = np.asarray(x, np.float32)
-            zf = 0.0 if zp is None else np.asarray(zp, np.float32)
-            return (xf - zf) * scale
+            def host():
+                s = self._per_axis(scale, ndim, axis)
+                z = self._per_axis(zp, ndim, axis)
+                zf = 0.0 if z is None else np.asarray(z, np.float32)
+                return (np.asarray(x, np.float32) - zf) * s
+
+            # Once for a constant operand of a QLinear* node.
+            return self._memo(("dequantize", id(node), id(x)),
+                              (x, scale, zp), host)
         dev = _device_of(x, scale, zp)
         scale = self._per_axis_tensor(scale, dev, ndim, axis)
         zp = self._per_axis_tensor(zp, dev, ndim, axis)
@@ -1979,8 +2155,10 @@ class _Evaluator:
         return self._requantize(accf, scale, y_zp)
 
     def op_MatMulInteger(self, node, a, b, a_zp=None, b_zp=None):
-        ai = self._as_i32(a, a_zp)
-        bi = self._as_i32(b, b_zp)
+        ai = self._memo(("shift_a", id(node)), (a, a_zp),
+                        lambda: self._as_i32(a, a_zp))
+        bi = self._memo(("shift_b", id(node)), (b, b_zp),
+                        lambda: self._as_i32(b, b_zp))
         if _is_host(ai) and _is_host(bi):
             return np.matmul(ai, bi).astype(np.int32)
         dev = _device_of(ai, bi)
@@ -2045,7 +2223,8 @@ class _Evaluator:
         if node.attr("transB", 0):
             # Transpose the quantized B first, so a per-output-channel
             # b_scale lands on axis 1 of the [K, N] operand.
-            b = b.T if not _is_host(b) else np.transpose(b)
+            b = b.T if not _is_host(b) else self._memo(
+                ("transB", id(node)), (b,), lambda: np.transpose(b))
         bf = self._dequantize(b, b_s, b_zp, node)
         alpha = node.attr("alpha", 1.0)
         if _is_host(af) and _is_host(bf):
@@ -2054,11 +2233,14 @@ class _Evaluator:
             af, bf = self._promote(af, bf, uniform=True)
             out = alpha * torch.matmul(af, bf)
         if c is not None:
-            cf = np.asarray(c, np.float32) if _is_host(c) \
-                else c.to(torch.float32)
-            cf = self._binary(np.multiply, torch.mul, self._binary(
-                np.multiply, torch.mul, cf, a_s), b_s)
-            out = self._binary(np.add, torch.add, out, cf)
+            def bias():
+                cf = np.asarray(c, np.float32) if _is_host(c) \
+                    else c.to(torch.float32)
+                return self._binary(np.multiply, torch.mul, self._binary(
+                    np.multiply, torch.mul, cf, a_s), b_s)
+
+            out = self._binary(np.add, torch.add, out, self._memo(
+                ("bias", id(node)), (c, a_s, b_s), bias))
         if y_s is None:
             return out
         return self._quantize(out, y_s, y_zp, node)
@@ -2285,7 +2467,7 @@ class _Evaluator:
             cdf = 0.5 * (1.0 + torch.tanh(const(np.sqrt(2 / np.pi)) * (
                 x + 0.044715 * (x * x * x))))
             return x * cdf
-        return (0.5 * x * torch.erfc(-x * const(np.sqrt(0.5)))).to(x.dtype)
+        return _gelu_exact(x)
 
     def op_Sign(self, node, x):
         return _math(x).sign(x)
@@ -2343,10 +2525,12 @@ class _Evaluator:
             f"Resize coordinate_transformation_mode '{ct}'")
 
     def _gather_axis(self, x, idx: np.ndarray, axis: int):
-        """``x`` at host indices ``idx`` (all in range) along ``axis``."""
+        """``x`` at host indices ``idx`` (all in range) along ``axis``;
+        ``idx`` is a fold of :meth:`_memo`, so its device copy is made
+        once."""
         if _is_host(x):
             return np.take(x, idx, axis=axis)
-        return x.index_select(axis, torch.from_numpy(idx).to(x.device))
+        return x.index_select(axis, self._tensor(idx, x.device))
 
     def _resize(self, node, x, out_shape, sc, mode: str, ct: str,
                 nm: str | None = None):
@@ -2363,18 +2547,10 @@ class _Evaluator:
                 if d_in == d_out:
                     continue
                 scale = float(sc[ax]) if sc is not None else d_out / d_in
-                coord = self._resize_coords(ct, d_in, d_out, scale)
-                if nm == "round_prefer_floor":
-                    idx = np.ceil(coord - 0.5)
-                elif nm == "round_prefer_ceil":
-                    idx = np.floor(coord + 0.5)
-                elif nm == "floor":
-                    idx = np.floor(coord)
-                elif nm == "ceil":
-                    idx = np.ceil(coord)
-                else:
-                    raise UnsupportedOnnxOp(f"Resize nearest_mode '{nm}'")
-                idx = np.clip(idx, 0, d_in - 1).astype(np.int64)
+                idx = self._memo(
+                    ("resize", id(node), ax, d_in, d_out, scale, ct, nm), [],
+                    lambda d_in=d_in, d_out=d_out, scale=scale:
+                    self._nearest_indices(ct, nm, d_in, d_out, scale))
                 out = self._gather_axis(out, idx, ax)
             return out
         if mode in ("linear", "bilinear"):
@@ -2383,20 +2559,17 @@ class _Evaluator:
                 if d_in == d_out:
                     continue
                 scale = float(sc[ax]) if sc is not None else d_out / d_in
-                coord = self._resize_coords(ct, d_in, d_out, scale)
-                lo = np.floor(coord)
-                w = (coord - lo).astype(np.float32)
-                lo_i = np.clip(lo, 0, d_in - 1).astype(np.int64)
-                hi_i = np.clip(lo + 1, 0, d_in - 1).astype(np.int64)
-                wshape = [1] * out.ndim
-                wshape[ax] = d_out
-                w = w.reshape(wshape)
+                lo_i, hi_i, w_lo, w_hi = self._memo(
+                    ("resize", id(node), ax, d_in, d_out, scale, ct,
+                     out.ndim), [],
+                    lambda ax=ax, d_in=d_in, d_out=d_out, scale=scale:
+                    self._linear_taps(ct, d_in, d_out, scale, ax, out.ndim))
                 a = self._gather_axis(out, lo_i, ax)
                 b = self._gather_axis(out, hi_i, ax)
                 out = self._binary(
                     np.add, torch.add,
-                    self._binary(np.multiply, torch.mul, a, 1.0 - w),
-                    self._binary(np.multiply, torch.mul, b, w))
+                    self._binary(np.multiply, torch.mul, a, w_lo),
+                    self._binary(np.multiply, torch.mul, b, w_hi))
             return out
         if mode == "cubic":
             if ct != "half_pixel":
@@ -2404,6 +2577,34 @@ class _Evaluator:
                     f"Resize cubic with coordinate mode '{ct}'")
             return self._keys_cubic(x, out_shape)
         raise UnsupportedOnnxOp(f"Resize mode {mode}")
+
+    def _nearest_indices(self, ct, nm, d_in, d_out, scale) -> np.ndarray:
+        """The source index of each output position of a nearest resize."""
+        coord = self._resize_coords(ct, d_in, d_out, scale)
+        if nm == "round_prefer_floor":
+            idx = np.ceil(coord - 0.5)
+        elif nm == "round_prefer_ceil":
+            idx = np.floor(coord + 0.5)
+        elif nm == "floor":
+            idx = np.floor(coord)
+        elif nm == "ceil":
+            idx = np.ceil(coord)
+        else:
+            raise UnsupportedOnnxOp(f"Resize nearest_mode '{nm}'")
+        return np.clip(idx, 0, d_in - 1).astype(np.int64)
+
+    def _linear_taps(self, ct, d_in, d_out, scale, ax, ndim) -> tuple:
+        """The two source indices of each output position of a linear
+        resize along ``ax`` and their weights, shaped to broadcast."""
+        coord = self._resize_coords(ct, d_in, d_out, scale)
+        lo = np.floor(coord)
+        w = (coord - lo).astype(np.float32)
+        lo_i = np.clip(lo, 0, d_in - 1).astype(np.int64)
+        hi_i = np.clip(lo + 1, 0, d_in - 1).astype(np.int64)
+        wshape = [1] * ndim
+        wshape[ax] = d_out
+        w = w.reshape(wshape)
+        return lo_i, hi_i, 1.0 - w, w
 
     def _keys_cubic(self, x, out_shape):
         """``jax.image.resize(x, out_shape, "bicubic")``: Keys' cubic
@@ -2415,27 +2616,35 @@ class _Evaluator:
         for d, (n_in, n_out) in enumerate(zip(x.shape, out_shape)):
             if n_in == n_out:
                 continue
-            scale = 1.0 if n_out == 0 else n_out / n_in
-            inv = np.float32(1.0 / scale)
-            kscale = max(inv, np.float32(1.0))
-            sample = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) \
-                * inv - np.float32(0.0) * inv - np.float32(0.5)
-            t = np.abs(sample[None, :] - np.arange(
-                n_in, dtype=np.float32)[:, None]) / kscale
-            w = ((np.float32(1.5) * t - np.float32(2.5)) * t) * t \
-                + np.float32(1.0)
-            w = np.where(t >= 1.0, ((np.float32(-0.5) * t + np.float32(2.5))
-                                    * t - np.float32(4.0)) * t
-                         + np.float32(2.0), w)
-            w = np.where(t >= 2.0, np.float32(0.0), w).astype(np.float32)
-            total = w.sum(axis=0, keepdims=True)
-            w = np.where(np.abs(total) > 1000.0 * float(np.finfo(
-                np.float32).eps), w / np.where(total != 0, total, 1), 0)
-            w = np.where(((sample >= -0.5) & (sample <= n_in - 0.5))[None, :],
-                         w, 0).astype(np.float32)
-            wt = torch.from_numpy(w).to(x.device, x.dtype)
+            w = self._memo(("keys", n_in, n_out), [],
+                           lambda n_in=n_in, n_out=n_out:
+                           self._keys_weights(n_in, n_out))
+            wt = self._tensor(w, x.device, x.dtype)
             x = torch.tensordot(x, wt, dims=([d], [0])).movedim(-1, d)
         return x
+
+    @staticmethod
+    def _keys_weights(n_in: int, n_out: int) -> np.ndarray:
+        """The ``[n_in, n_out]`` float32 weights of one axis of
+        :meth:`_keys_cubic`."""
+        scale = 1.0 if n_out == 0 else n_out / n_in
+        inv = np.float32(1.0 / scale)
+        kscale = max(inv, np.float32(1.0))
+        sample = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) \
+            * inv - np.float32(0.0) * inv - np.float32(0.5)
+        t = np.abs(sample[None, :] - np.arange(
+            n_in, dtype=np.float32)[:, None]) / kscale
+        w = ((np.float32(1.5) * t - np.float32(2.5)) * t) * t \
+            + np.float32(1.0)
+        w = np.where(t >= 1.0, ((np.float32(-0.5) * t + np.float32(2.5))
+                                * t - np.float32(4.0)) * t
+                     + np.float32(2.0), w)
+        w = np.where(t >= 2.0, np.float32(0.0), w).astype(np.float32)
+        total = w.sum(axis=0, keepdims=True)
+        w = np.where(np.abs(total) > 1000.0 * float(np.finfo(
+            np.float32).eps), w / np.where(total != 0, total, 1), 0)
+        return np.where(((sample >= -0.5) & (sample <= n_in - 0.5))[None, :],
+                        w, 0).astype(np.float32)
 
     def op_Resize(self, node, x, roi=None, scales=None, sizes=None):
         legacy = bool(self.opset and self.opset < 11)
@@ -2512,8 +2721,11 @@ class _Evaluator:
             for ax, (d_in, d_out) in enumerate(zip(x.shape, out_shape)):
                 if d_in == d_out:
                     continue
-                idx = np.clip(np.floor(np.arange(d_out) / sc[ax]), 0,
-                              d_in - 1).astype(np.int64)
+                idx = self._memo(
+                    ("upsample", id(node), ax, d_in, d_out, float(sc[ax])),
+                    [], lambda d_in=d_in, d_out=d_out, s=sc[ax]: np.clip(
+                        np.floor(np.arange(d_out) / s), 0,
+                        d_in - 1).astype(np.int64))
                 out = self._gather_axis(out, idx, ax)
             return out
         return self._resize(node, x, out_shape, sc, mode, "asymmetric")
@@ -2527,6 +2739,1073 @@ class _Evaluator:
         if all(_is_host(x) for x in xs):
             return np.einsum(eq, *xs)
         return torch.einsum(eq, *(t.float() for t in self._promote(*xs)))
+
+    # -- scatter / gather extras ---------------------------------------------
+
+    def op_CastLike(self, node, x, target):
+        """``x`` at ``target``'s dtype (a device cast to a 64-bit type
+        gives 32 bits, as jax with x64 off). A host ``x`` stays a host value
+        (a bf16 one, which numpy does not hold, becomes a tensor on
+        ``target``'s device), made once while ``x`` is a constant, so its
+        device copy is made once too."""
+        if _is_host(target):
+            dt = np.asarray(target).dtype
+            if _is_host(x):
+                return np.asarray(x).astype(dt)
+            return x.to(_DEVICE_DTYPE[dt])
+        if not _is_host(x):
+            return x.to(target.dtype)
+        np_dt = _NP_OF_TORCH.get(target.dtype)
+
+        def cast():
+            if np_dt is not None:
+                return np.asarray(x).astype(np_dt)
+            return self._tensor(x, target.device, target.dtype)
+
+        return self._memo(("CastLike", id(node), target.dtype,
+                           target.device), [x], cast)
+
+    def op_EyeLike(self, node, x):
+        """A host identity of ``x``'s leading two dims (a bf16 one, which
+        numpy does not hold, as a tensor on ``x``'s device), made once per
+        shape and dtype, so its device copy is made once too."""
+        k = node.attr("k", 0)
+        to = node.attr("dtype")
+        rows, cols = x.shape[0], x.shape[1]
+        if to is not None:
+            dt = _NP_DTYPES[to]
+        elif _is_host(x):
+            dt = np.asarray(x).dtype
+        elif x.dtype == torch.bfloat16:
+            return self._memo(
+                ("EyeLike", id(node), rows, cols, x.device), [],
+                lambda: self._tensor(np.eye(rows, cols, k=k,
+                                            dtype=np.float32),
+                                     x.device, torch.bfloat16))
+        else:
+            dt = _NP_OF_TORCH[x.dtype]
+        return self._memo(("EyeLike", id(node), rows, cols, np.dtype(dt)),
+                          [], lambda: np.eye(rows, cols, k=k, dtype=dt))
+
+    def op_OneHot(self, node, indices, depth, values):
+        """Indices in [-depth, -1] wrap once; anything outside
+        [-depth, depth - 1] gives an all-off row (no modulo wrap)."""
+        axis = node.attr("axis", -1)
+        d = int(np.asarray(self._host_value(node, depth, "depth")).reshape(()))
+        nd = np.ndim(indices) + 1
+        ax = axis % nd
+        shape = [1] * nd
+        shape[ax] = d
+        if _all_host(indices, values):
+            idx = np.where(indices < 0, indices + d, indices)
+            hot = np.expand_dims(idx, ax) == np.arange(d).reshape(shape)
+            return np.where(hot, values[1], values[0])
+        dev = _device_of(indices, values)
+        it = self._tensor(indices, dev)
+        idx = torch.where(it < 0, it + d, it)
+        hot = idx.unsqueeze(ax) == torch.arange(d, device=dev).reshape(shape)
+        v = self._tensor(values, dev)
+        return torch.where(hot, v[1], v[0])
+
+    def op_GatherND(self, node, data, indices):
+        """``data[idx[..., 0], idx[..., 1], ...]``: negative indices count
+        from the end, an index still out of range is clamped (jax's gather
+        mode), so nothing is checked on the host."""
+        batch_dims = node.attr("batch_dims", 0)
+        if batch_dims:
+            raise UnsupportedOnnxOp(
+                f"GatherND batch_dims={batch_dims} is not supported")
+        if _all_host(data, indices):
+            return np.asarray(data)[tuple(np.moveaxis(np.asarray(indices),
+                                                      -1, 0))]
+        dev = _device_of(data, indices)
+        d = self._tensor(data, dev)
+        it = self._tensor(indices, dev).to(torch.int64)
+        parts = []
+        for k in range(indices.shape[-1]):
+            n = d.shape[k]
+            p = it[..., k]
+            parts.append(torch.where(p < 0, p + n, p).clamp(0, max(n - 1, 0)))
+        return d[tuple(parts)]
+
+    def _scatter_reduce(self, node):
+        red = node.attr("reduction", b"none")
+        red = red.decode() if isinstance(red, bytes) else red
+        if red not in ("none", "add", "mul", "max", "min"):
+            raise UnsupportedOnnxOp(
+                f"{node.op_type} reduction '{red}' is not supported")
+        return red
+
+    @staticmethod
+    def _scatter(d: torch.Tensor, coords, updates: torch.Tensor,
+                 red: str) -> torch.Tensor:
+        """``d.at[coords].set/add/multiply/max/min(updates)`` as jax does
+        it: ``coords`` index ``d``'s leading dims (broadcast to one shape);
+        negative indices count from the end and an update still out of
+        range is dropped. The leading dims are flattened, and a dropped
+        update goes to one extra row that is cut off again, so no index is
+        read on the host."""
+        k = len(coords)
+        lead, rest = d.shape[:k], tuple(d.shape[k:])
+        rows = int(np.prod(lead, dtype=np.int64))
+        coords = torch.broadcast_tensors(*coords)
+        lin = torch.zeros_like(coords[0])
+        valid = torch.ones_like(coords[0], dtype=torch.bool)
+        for c, n in zip(coords, lead):
+            c = torch.where(c < 0, c + n, c)
+            valid &= (c >= 0) & (c < n)
+            lin = lin * n + c
+        lin = torch.where(valid, lin, rows).reshape(-1)
+        flat = torch.cat([d.reshape(rows, *rest), d.new_zeros((1, *rest))])
+        u = updates.to(d.dtype).reshape(-1, *rest)
+        if red == "none":
+            flat.index_put_((lin,), u)
+        elif red == "add":
+            flat.index_put_((lin,), u, accumulate=True)
+        else:
+            idx = lin.reshape(-1, *([1] * len(rest))).expand_as(u)
+            flat.scatter_reduce_(0, idx, u, {"mul": "prod", "max": "amax",
+                                             "min": "amin"}[red])
+        return flat[:rows].reshape(d.shape)
+
+    def op_ScatterND(self, node, data, indices, updates):
+        red = self._scatter_reduce(node)
+        dev = _device_of(data, indices, updates)
+        d = self._tensor(data, dev)
+        it = self._tensor(indices, dev).to(torch.int64)
+        coords = [it[..., i] for i in range(indices.shape[-1])]
+        return self._scatter(d, coords, self._tensor(updates, dev), red)
+
+    def op_ScatterElements(self, node, data, indices, updates):
+        red = self._scatter_reduce(node)
+        axis = node.attr("axis", 0)
+        if _all_host(data, indices, updates) and red == "none":
+            out = np.asarray(data).copy()
+            np.put_along_axis(out, np.asarray(indices), np.asarray(updates),
+                              axis=axis)
+            return out
+        dev = _device_of(data, indices, updates)
+        d = self._tensor(data, dev)
+        it = self._tensor(indices, dev).to(torch.int64)
+        coords = [torch.arange(it.shape[a], device=dev).reshape(
+            [-1 if i == a else 1 for i in range(it.ndim)])
+            for a in range(it.ndim)]
+        coords[axis % d.ndim] = it
+        return self._scatter(d, coords, self._tensor(updates, dev), red)
+
+    def op_Scatter(self, node, data, indices, updates):
+        # Deprecated opset-9 alias of ScatterElements.
+        return self.op_ScatterElements(node, data, indices, updates)
+
+    # -- opset-18+ breadth ops -------------------------------------------------
+
+    def op_GroupNormalization(self, node, x, scale, bias):
+        """Opset 18 (per-group scale/bias) and opset 21 (per-channel),
+        told apart by the parameters' length, as ONNX Runtime does."""
+        eps = node.attr("epsilon", 1e-5)
+        g = node.attr("num_groups")
+        n, c = x.shape[0], x.shape[1]
+        if g is None or c % g:
+            raise UnsupportedOnnxOp(
+                f"GroupNormalization num_groups={g} over C={c}")
+        m, (x, scale, bias) = self._lib(x, scale, bias)
+        xs = m.reshape(x, (n, g, -1))
+        # ``xs - mu`` once: an eager device run has no CSE to share it.
+        d = xs - m.mean(xs, axis=-1, keepdims=True)
+        var = m.mean(d ** 2, axis=-1, keepdims=True)
+        y = m.reshape(d / m.sqrt(var + eps), x.shape)
+        if scale.shape[0] == g != c:  # opset-18 per-group params
+            scale = m.repeat(scale, c // g)
+            bias = m.repeat(bias, c // g)
+        shape = (1, c) + (1,) * (x.ndim - 2)
+        return y * m.reshape(scale, shape) + m.reshape(bias, shape)
+
+    def _rms_normalize(self, node, x, scale):
+        eps = node.attr("epsilon", 1e-5)
+        axis = node.attr("axis", -1)
+        m, (x, scale) = self._lib(x, scale)
+        axes = tuple(range(axis % x.ndim, x.ndim))
+        ms = m.mean(m.square(x), axis=axes, keepdims=True)
+        return x / m.sqrt(ms + eps) * scale
+
+    def op_RMSNormalization(self, node, x, scale):
+        return self._rms_normalize(node, x, scale)
+
+    def op_SimplifiedLayerNormalization(self, node, x, scale):
+        # com.microsoft spelling of RMSNorm (transformer exports).
+        return self._rms_normalize(node, x, scale)
+
+    def op_ReverseSequence(self, node, x, seq_lens):
+        batch_axis = node.attr("batch_axis", 1)
+        time_axis = node.attr("time_axis", 0)
+        m, (x, seq_lens) = self._lib(x, seq_lens)
+        t_len = x.shape[time_axis]
+        lens = m.reshape(seq_lens, (-1, 1))
+        t = m.arange(t_len)[None, :]
+        idx = m.where(t < lens, lens - 1 - t, t)  # [B, T]
+        xm = m.moveaxis(x, (batch_axis, time_axis), (0, 1))
+        idx = m.reshape(idx, tuple(idx.shape) + (1,) * (xm.ndim - 2))
+        # A length beyond the time axis reads out of range: jnp's fill on
+        # the card, numpy's IndexError on host values (as in JAX).
+        out = m.take_along_axis(xm, idx, axis=1)
+        return m.moveaxis(out, (0, 1), (batch_axis, time_axis))
+
+    def op_CenterCropPad(self, node, x, shape):
+        target = [int(v) for v in np.asarray(
+            self._host_value(node, shape, "shape")).reshape(-1)]
+        axes = node.attr("axes")
+        axes = (list(range(x.ndim)) if axes is None
+                else [a % x.ndim for a in axes])
+        pads = []
+        slices = [slice(None)] * x.ndim
+        for ax, want in zip(axes, target):
+            have = x.shape[ax]
+            if want < have:  # centered crop, floor offset at the start
+                start = (have - want) // 2
+                slices[ax] = slice(start, start + want)
+            elif want > have:  # centered pad, extra element at the end
+                before = (want - have) // 2
+                pads.append((ax, before, want - have - before))
+        x = x[tuple(slices)]
+        if not pads:
+            return x
+        widths = [(0, 0)] * x.ndim
+        for ax, b, a in pads:
+            widths[ax] = (b, a)
+        if _is_host(x):
+            return np.pad(x, widths)
+        return F.pad(x, [v for pair in reversed(widths) for v in pair])
+
+    def op_Col2Im(self, node, x, image_shape, block_shape):
+        """Inverse im2col (opset 18): each of the kH*kW kernel taps adds
+        one strided slice onto the image canvas."""
+        img = [int(v) for v in np.asarray(self._host_value(
+            node, image_shape, "image_shape")).reshape(-1)]
+        blk = [int(v) for v in np.asarray(self._host_value(
+            node, block_shape, "block_shape")).reshape(-1)]
+        nsp = len(img)
+        dil = list(node.attr("dilations") or [1] * nsp)
+        pads = list(node.attr("pads") or [0] * (2 * nsp))
+        strides = list(node.attr("strides") or [1] * nsp)
+        if nsp != 2:
+            raise UnsupportedOnnxOp(
+                f"Col2Im with {nsp} spatial dims (only 2-D supported)")
+        (ih, iw), (kh, kw) = img, blk
+        sh, sw = [
+            (img[i] + pads[i] + pads[nsp + i] - dil[i] * (blk[i] - 1) - 1)
+            // strides[i] + 1 for i in range(nsp)]
+        x = self._tensor(x, _device_of(x))
+        n = x.shape[0]
+        c = x.shape[1] // (kh * kw)
+        cols = x.reshape(n, c, kh, kw, sh, sw)
+        canvas = torch.zeros((n, c, ih + pads[0] + pads[2],
+                              iw + pads[1] + pads[3]),
+                             dtype=cols.dtype, device=cols.device)
+        for i in range(kh):
+            for j in range(kw):
+                canvas[:, :,
+                       i * dil[0]: i * dil[0] + sh * strides[0]: strides[0],
+                       j * dil[1]: j * dil[1] + sw * strides[1]: strides[1],
+                       ] += cols[:, :, i, j]
+        return canvas[:, :, pads[0]: pads[0] + ih, pads[1]: pads[1] + iw]
+
+    def op_GridSample(self, node, x, grid):
+        """2-D GridSample (opset 16/20): linear or nearest over zeros or
+        border padding, one flattened gather per corner."""
+        mode = node.attr("mode", b"linear")
+        mode = mode.decode() if isinstance(mode, bytes) else mode
+        pad = node.attr("padding_mode", b"zeros")
+        pad = pad.decode() if isinstance(pad, bytes) else pad
+        align = node.attr("align_corners", 0)
+        if np.ndim(x) != 4:
+            raise UnsupportedOnnxOp("GridSample supports 2-D inputs only")
+        if mode not in ("linear", "bilinear", "nearest"):
+            raise UnsupportedOnnxOp(f"GridSample mode '{mode}'")
+        if pad not in ("zeros", "border"):
+            raise UnsupportedOnnxOp(f"GridSample padding_mode '{pad}'")
+        dev = _device_of(x, grid)
+        x, grid = self._tensor(x, dev), self._tensor(grid, dev)
+        n, c, h, w = x.shape
+        gx, gy = grid[..., 0], grid[..., 1]
+
+        def unnorm(g, size):
+            if align:
+                return (g + 1.0) * 0.5 * (size - 1)
+            return ((g + 1.0) * size - 1.0) * 0.5
+
+        fx, fy = unnorm(gx, w), unnorm(gy, h)
+        flat = x.reshape(n, c, h * w)
+
+        def tap(ix, iy):
+            """x[n, :, iy, ix] with a border clamp, zeroed out of bounds
+            under zeros padding."""
+            ok = (ix >= 0) & (ix <= w - 1) & (iy >= 0) & (iy <= h - 1)
+            idx = iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)
+            idx = idx.to(torch.int64).reshape(n, 1, -1).expand(n, c, -1)
+            vals = torch.gather(flat, 2, idx).reshape(
+                (n, c) + tuple(gx.shape[1:]))
+            if pad == "zeros":
+                vals = vals * ok.unsqueeze(1).to(vals.dtype)
+            return vals
+
+        if mode == "nearest":
+            return tap(torch.round(fx).to(torch.int32),
+                       torch.round(fy).to(torch.int32))
+        x0, y0 = torch.floor(fx), torch.floor(fy)
+        wx = (fx - x0).to(x.dtype)[:, None]
+        wy = (fy - y0).to(x.dtype)[:, None]
+        x0i, y0i = x0.to(torch.int32), y0.to(torch.int32)
+        v00 = tap(x0i, y0i)
+        v01 = tap(x0i + 1, y0i)
+        v10 = tap(x0i, y0i + 1)
+        v11 = tap(x0i + 1, y0i + 1)
+        top = v00 * (1 - wx) + v01 * wx
+        bot = v10 * (1 - wx) + v11 * wx
+        return top * (1 - wy) + bot * wy
+
+    def op_AffineGrid(self, node, theta, size):
+        """Opset-20 AffineGrid (2-D): theta [N,2,3] and a host size
+        [N,C,H,W] give the grid [N,H,W,2] of (x, y) in [-1, 1], in
+        float32."""
+        dims = [int(v) for v in np.asarray(
+            self._host_value(node, size, "size")).reshape(-1)]
+        if len(dims) != 4:
+            raise UnsupportedOnnxOp(
+                f"AffineGrid with {len(dims) - 2} spatial dims "
+                "(only 2-D supported)")
+        n, _, h, w = dims
+        align = node.attr("align_corners", 0)
+        dev = _device_of(theta)
+
+        def base(count):
+            r = torch.arange(count, dtype=torch.float32, device=dev)
+            if align:
+                return -1.0 + _true_div(2.0 * r, max(count - 1, 1))
+            return _true_div(2.0 * r + 1.0, count) - 1.0
+
+        xs = base(w)[None, :].expand(h, w)
+        ys = base(h)[:, None].expand(h, w)
+        ones = torch.ones((h, w), dtype=torch.float32, device=dev)
+        pts = torch.stack([xs, ys, ones], dim=-1).reshape(h * w, 3)
+        th = self._tensor(theta, dev, torch.float32)
+        return torch.einsum("pk,nok->npo", pts, th).reshape(n, h, w, 2)
+
+    def op_Det(self, node, x):
+        if _is_host(x):
+            return np.linalg.det(np.asarray(x)).astype(np.asarray(x).dtype)
+        return _det(x)
+
+    def _bitwise(self, np_fn, torch_fn, *xs):
+        """A bitwise op in jnp's promotion; the unsigned dtypes PyTorch has
+        no bitwise kernels for run on int64 and convert back (modulo 2^n,
+        as the op itself wraps)."""
+        if _all_host(*xs):
+            return np_fn(*xs)
+        ts = self._promote(*xs, uniform=True)
+        dt = next(t.dtype for t in ts if isinstance(t, torch.Tensor))
+        if dt in _WIDE_UNSIGNED:
+            wide = [t.to(torch.int64) if isinstance(t, torch.Tensor) else t
+                    for t in ts]
+            return torch_fn(*wide).to(dt)
+        return torch_fn(*ts)
+
+    def op_BitShift(self, node, x, y):
+        d = node.attr("direction")
+        d = d.decode() if isinstance(d, bytes) else d
+        if d == "LEFT":
+            return self._bitwise(np.left_shift, torch.bitwise_left_shift,
+                                 x, y)
+        if d == "RIGHT":
+            return self._bitwise(np.right_shift, torch.bitwise_right_shift,
+                                 x, y)
+        raise UnsupportedOnnxOp(f"BitShift direction '{d}'")
+
+    def op_BitwiseAnd(self, node, a, b):
+        return self._bitwise(np.bitwise_and, torch.bitwise_and, a, b)
+
+    def op_BitwiseOr(self, node, a, b):
+        return self._bitwise(np.bitwise_or, torch.bitwise_or, a, b)
+
+    def op_BitwiseXor(self, node, a, b):
+        return self._bitwise(np.bitwise_xor, torch.bitwise_xor, a, b)
+
+    def op_BitwiseNot(self, node, x):
+        return self._bitwise(np.invert, torch.bitwise_not, x)
+
+    # -- attention (opset 23 + com.microsoft fused transformer ops) -----------
+    #
+    # Both spellings of a transformer export (opset-23 Attention, and the
+    # ORT optimizer's com.microsoft fused ops) run one core, _sdpa, with the
+    # JAX core's numerics: fp32 products and softmax. Not
+    # F.scaled_dot_product_attention: its bf16 rounding differs from the
+    # reference and it returns no raw Q·Kᵀ. KV-cache inputs (decode-time
+    # state) are refused, as in the JAX evaluator.
+
+    def _sdpa(self, q, k, v, mask=None, is_causal=False, scale=None,
+              softcap=0.0):
+        """q/k/v: [B, H, S, D] (kv heads may divide q heads: GQA). mask:
+        bool (True = attend) or additive float, broadcastable to
+        [B, H, Sq, Skv]. Returns (out, qk_raw): the output at ``v``'s dtype
+        and the scaled Q·Kᵀ before mask and softcap, in float32.
+
+        The products take float32 operands: a bf16 operand is exact in
+        float32, and the float32 product (TF32 off) is the fp32-accumulated
+        product of the bf16 values with a float32 result, which is what the
+        JAX core's ``preferred_element_type=float32`` gives; a bf16
+        ``torch.matmul`` would round its result to bf16."""
+        dev = _device_of(q, k, v, mask)
+        q, k, v = (self._tensor(t, dev) for t in (q, k, v))
+        hq, hkv = q.shape[1], k.shape[1]
+        if hq != hkv:  # grouped-query attention: repeat kv heads
+            if hq % hkv:
+                raise UnsupportedOnnxOp(
+                    f"Attention q_heads={hq} not a multiple of kv_heads={hkv}")
+            k = k.repeat_interleave(hq // hkv, dim=1)
+            v = v.repeat_interleave(hq // hkv, dim=1)
+        if scale is None:
+            scale = 1.0 / float(np.sqrt(q.shape[-1]))
+        qk_raw = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+        qk = qk_raw
+        # The spec's order: an additive mask joins the logits before the
+        # softcap; a boolean or causal mask is a -inf select just before
+        # the softmax.
+        bool_mask = None
+        if mask is not None:
+            mask = self._tensor(mask, dev)
+            while mask.ndim < 4:
+                mask = mask[None]
+            if mask.dtype == torch.bool:
+                bool_mask = mask
+            else:
+                qk = qk + mask
+        if softcap:
+            qk = softcap * torch.tanh(_true_div(qk, softcap))
+        if is_causal:
+            # Upper-left alignment (tril of ones(Sq, Skv)), combined with
+            # any given mask.
+            sq, skv = qk.shape[-2], qk.shape[-1]
+            causal = (torch.arange(skv, device=dev)[None, :]
+                      <= torch.arange(sq, device=dev)[:, None])
+            bool_mask = causal if bool_mask is None else bool_mask & causal
+        if bool_mask is not None:
+            qk = torch.where(bool_mask, qk, -float("inf"))
+        e = torch.exp(qk - qk.amax(dim=-1, keepdim=True))
+        w = e / e.sum(dim=-1, keepdim=True)
+        out = torch.matmul(w, v.float())
+        return out.to(v.dtype), qk_raw
+
+    @staticmethod
+    def _split_heads(x, n_heads):
+        """[B, S, H*D] -> [B, H, S, D]"""
+        b, s, hid = x.shape
+        return x.reshape(b, s, n_heads, hid // n_heads).permute(0, 2, 1, 3)
+
+    @staticmethod
+    def _merge_heads(x):
+        """[B, H, S, D] -> [B, S, H*D]"""
+        b, h, s, d = x.shape
+        return x.permute(0, 2, 1, 3).reshape(b, s, h * d)
+
+    def op_Attention(self, node, q, k, v, attn_mask=None,
+                     past_key=None, past_value=None):
+        """Opset-23 Attention: 3-D ([B,S,hidden]) or 4-D ([B,H,S,D])
+        Q/K/V, bool or additive mask, is_causal, GQA, scale, softcap;
+        present K/V (no past: K/V in head layout) and the raw Q·Kᵀ."""
+        if past_key is not None or past_value is not None:
+            raise UnsupportedOnnxOp("Attention past_key/past_value (KV cache)")
+        if len(node.outputs) > 3 and node.outputs[3]:
+            mode = node.attr("qk_matmul_output_mode", 0)
+            if mode != 0:
+                raise UnsupportedOnnxOp(
+                    f"Attention qk_matmul_output_mode={mode}")
+        dev = _device_of(q, k, v, attn_mask)
+        q, k, v = (self._tensor(t, dev) for t in (q, k, v))
+        three_d = q.ndim == 3
+        if three_d:
+            hq = node.attr("q_num_heads")
+            hkv = node.attr("kv_num_heads")
+            if not hq or not hkv:
+                raise UnsupportedOnnxOp(
+                    "3-D Attention requires q_num_heads/kv_num_heads")
+            q = self._split_heads(q, hq)
+            k = self._split_heads(k, hkv)
+            v = self._split_heads(v, hkv)
+        out, qk = self._sdpa(
+            q, k, v, mask=attn_mask,
+            is_causal=bool(node.attr("is_causal", 0)),
+            scale=node.attr("scale"),
+            softcap=node.attr("softcap", 0.0))
+        if three_d:
+            out = self._merge_heads(out)
+        results = [out]
+        if len(node.outputs) > 1:
+            results += [k, v]
+            if len(node.outputs) > 3:
+                results.append(qk)
+        return tuple(results) if len(results) > 1 else out
+
+    def op_MultiHeadAttention(self, node, query, key=None, value=None,
+                              bias=None, key_padding_mask=None,
+                              attention_bias=None, past_key=None,
+                              past_value=None):
+        """com.microsoft MultiHeadAttention: separate Q/K/V ([B,S,hidden]),
+        packed QKV in ``query`` ([B,S,num_heads,3,head_size]) or packed KV
+        in ``key`` ([B,kv_S,num_heads,2,head_size]); an optional fused bias
+        (at the query's dtype) and additive attention bias."""
+        if past_key is not None or past_value is not None:
+            raise UnsupportedOnnxOp("MultiHeadAttention past KV cache")
+        if key_padding_mask is not None:
+            raise UnsupportedOnnxOp("MultiHeadAttention key_padding_mask")
+        n = node.attr("num_heads")
+        if not n:
+            raise UnsupportedOnnxOp("MultiHeadAttention requires num_heads")
+        dev = _device_of(query, key, value, bias, attention_bias)
+
+        def heads(x):  # [B, S, N, D] -> [B, N, S, D]
+            return x.permute(0, 2, 1, 3)
+
+        if key is None and value is None:
+            query = self._tensor(query, dev)
+            if query.ndim != 5 or query.shape[3] != 3:
+                raise UnsupportedOnnxOp(
+                    "MultiHeadAttention without key/value requires packed "
+                    f"QKV [B,S,heads,3,head] (got rank {query.ndim})")
+            if bias is not None:
+                raise UnsupportedOnnxOp(
+                    "MultiHeadAttention bias with packed QKV")
+            q, k, v = (heads(query[..., i, :]) for i in range(3))
+        elif value is None and key is not None and np.ndim(key) == 5:
+            if key.shape[3] != 2:
+                raise UnsupportedOnnxOp(
+                    "MultiHeadAttention packed KV must be [B,S,heads,2,head]")
+            if bias is not None:
+                raise UnsupportedOnnxOp(
+                    "MultiHeadAttention bias with packed KV")
+            key = self._tensor(key, dev)
+            q = self._split_heads(self._tensor(query, dev), n)
+            k, v = (heads(key[..., i, :]) for i in range(2))
+        else:
+            q, k, v = (self._tensor(t, dev) for t in (query, key, value))
+            if bias is not None:
+                b = self._tensor(bias, dev, q.dtype)
+                hid = q.shape[-1]
+                q = q + b[:hid]
+                k = k + b[hid:hid + k.shape[-1]]
+                v = v + b[hid + k.shape[-1]:]
+            q, k, v = (self._split_heads(t, n) for t in (q, k, v))
+        out, _ = self._sdpa(q, k, v, mask=attention_bias,
+                            scale=node.attr("scale"))
+        return self._merge_heads(out)
+
+    def op_FusedMatMul(self, node, a, b):
+        """com.microsoft MatMul with transposes and ``alpha`` folded in:
+        compute-dtype operands, fp32 sums, the result at ``a``'s dtype."""
+        if node.attr("transBatchA", 0) or node.attr("transBatchB", 0):
+            raise UnsupportedOnnxOp("FusedMatMul transBatchA/B")
+        a, b = self._mm_cast(_device_of(a, b), a, b)
+        if node.attr("transA", 0):
+            a = a.transpose(-1, -2)
+        if node.attr("transB", 0):
+            b = b.transpose(-1, -2)
+        out = self._contract(torch.matmul, a, b)
+        return out.to(a.dtype) * node.attr("alpha", 1.0)
+
+    def op_FastGelu(self, node, x, bias=None):
+        """com.microsoft tanh-approximated gelu with an optional fused bias;
+        its constant is a float32 scalar (strongly typed in jnp, so a bf16
+        input gives a float32 output). ``x ** 3`` is jnp's integer power,
+        ``x * x * x``."""
+        m, (x, bias) = self._lib(x, bias)
+        if bias is not None:
+            x = x + bias
+        c = np.sqrt(2.0 / np.pi).astype(np.float32)
+        inner = x + 0.044715 * (x * x * x)
+        inner = c * inner if m is np else m.mul_f32(c, inner)
+        return 0.5 * x * (1.0 + m.tanh(inner))
+
+    def op_BiasGelu(self, node, x, bias):
+        """Exact gelu of ``x + bias`` (``jax.nn.gelu``, which the JAX
+        evaluator runs on host values too)."""
+        t = self._binary(np.add, torch.add, x, bias)
+        return _gelu_exact(self._tensor(t, _device_of(t)))
+
+    def op_QuickGelu(self, node, x):
+        alpha = node.attr("alpha", 1.702)
+        if _is_host(x):
+            return x / (1.0 + np.exp(-alpha * x))
+        return x * torch.sigmoid(alpha * x)
+
+    def _graph_consumes(self, name: str) -> bool:
+        """Whether a tensor name feeds any node (subgraphs included) or is
+        a graph output: an op with a declared but unsupported optional
+        output fails typed instead of leaking None downstream."""
+        names = getattr(self, "_consumed_names", None)
+        if names is None:
+            names = set()
+
+            def walk(g):
+                for nd in g.nodes:
+                    names.update(i for i in nd.inputs if i)
+                    for a in nd.attrs.values():
+                        if a.g is not None:
+                            walk(a.g)
+
+            walk(self.graph)
+            names.update(o.name for o in self.graph.outputs)
+            self._consumed_names = names
+        return name in names
+
+    def _skip_layer_norm(self, node, x, skip, gamma, beta, bias, rms):
+        eps = node.attr("epsilon", 1e-12)
+        m, (x, skip, gamma, beta, bias) = self._lib(x, skip, gamma, beta,
+                                                    bias)
+        total = x + skip if bias is None else x + skip + bias
+        if rms:
+            denom = m.sqrt(m.mean(m.square(total), axis=-1, keepdims=True)
+                           + eps)
+            out = total / denom * gamma
+        else:
+            # ``total - mu`` once: an eager device run has no CSE.
+            d = total - m.mean(total, axis=-1, keepdims=True)
+            var = m.mean(d ** 2, axis=-1, keepdims=True)
+            out = d / m.sqrt(var + eps) * gamma
+            if beta is not None:
+                out = out + beta
+        # Outputs 2/3 (mean, inv_std_var) are training-only; output 4 is
+        # the pre-norm sum some graphs feed the residual stream from.
+        for pos in (1, 2):
+            if len(node.outputs) > pos and node.outputs[pos] \
+                    and self._graph_consumes(node.outputs[pos]):
+                raise UnsupportedOnnxOp(
+                    f"{node.op_type} training-only output "
+                    f"'{node.outputs[pos]}' (mean/inv_std_var) is consumed "
+                    "by the graph")
+        results = [out]
+        if len(node.outputs) > 1:
+            results += [None, None]
+            if len(node.outputs) > 3:
+                results.append(total)
+        return tuple(results) if len(results) > 1 else out
+
+    def op_SkipLayerNormalization(self, node, x, skip, gamma, beta=None,
+                                  bias=None):
+        return self._skip_layer_norm(node, x, skip, gamma, beta, bias,
+                                     rms=False)
+
+    def op_SkipSimplifiedLayerNormalization(self, node, x, skip, gamma,
+                                            bias=None):
+        return self._skip_layer_norm(node, x, skip, gamma, None, bias,
+                                     rms=True)
+
+    # -- control flow ----------------------------------------------------------
+    #
+    # ONNX If/Loop/Scan run at call time, as the JAX evaluator runs them at
+    # trace time: a condition and a trip count must be host values, If
+    # picks its branch and Loop/Scan unroll their bodies. A device value
+    # there is refused (reading it would sync the card every step).
+
+    _LOOP_UNROLL_CAP = 4096
+
+    def _outer_env(self) -> dict:
+        stack = getattr(self._tls, "envs", None)
+        return stack[-1] if stack else {}
+
+    def _iteration(self, i: int) -> np.int64:
+        """The iteration number ``i`` as the same object at every call, so
+        that a body's folds on it are made once per iteration."""
+        it = self._iters.get(i)
+        return it if it is not None else self._iters.setdefault(i,
+                                                                np.int64(i))
+
+    def _subgraph_evaluator(self, graph) -> "_Evaluator":
+        """One evaluator per subgraph body, made once (Loop and Scan call
+        it per iteration) under a lock, for threads that share the function
+        (``--jobs`` workers). Always the stock float evaluator: the int8
+        and calibration subclasses act on top-level nodes only, so a body
+        runs float, never half quantized with missing scales. It shares
+        the enclosing evaluator's folds, persistent host arrays, device
+        copies and iteration numbers, so that what is constant outside is
+        constant inside and each fold is kept once."""
+        with self._sub_lock:
+            ev = self._sub_evs.get(id(graph))
+            if ev is None:
+                ev = _Evaluator(graph, compute_dtype=self._compute_dtype,
+                                opset=self.opset)
+                # Large body weights lifted into the params arrive through
+                # the outer environment instead.
+                for n in self.lifted_params:
+                    ev.const.pop(n, None)
+                ev.lifted_params = self.lifted_params
+                ev._memos, ev._persistent = self._memos, self._persistent
+                ev._device_copies, ev._iters = (self._device_copies,
+                                                self._iters)
+                self._persistent.update(id(v) for v in ev.const.values()
+                                        if isinstance(v, np.ndarray))
+                self._sub_evs[id(graph)] = ev
+        return ev
+
+    def _run_subgraph(self, graph, feeds: dict, step=None) -> list:
+        """Run a subgraph attribute with outer-scope closure (ONNX
+        nested-scope semantics: its nodes may read any name visible in the
+        enclosing graph; its own initializers and Constants shadow outer
+        values of the same name). ``step`` is the Loop or Scan iteration it
+        runs for."""
+        ev = self._subgraph_evaluator(graph)
+        env = dict(ev.const)
+        env.update((k, v) for k, v in self._outer_env().items()
+                   if k and k not in ev.const)
+        env.update(feeds)
+        steps = self._steps() if step is None else self._steps() + (step,)
+        prev = getattr(ev._tls, "steps", ())
+        ev._tls.steps = steps
+        try:
+            out_env = ev._execute(env)
+        finally:
+            ev._tls.steps = prev
+        return [out_env[vi.name] for vi in graph.outputs]
+
+    def _stack(self, key, vals, axis: int = 0):
+        """The outputs of every iteration stacked along ``axis``: on the
+        host, once while they are constants; on the device, promoted to
+        one dtype."""
+        if all(_is_host(v) for v in vals):
+            return self._memo(key, vals, lambda: np.stack(
+                [np.asarray(v) for v in vals], axis=axis))
+        dev = _device_of(*vals)
+        return torch.stack(self._promote(*vals, dev=dev, uniform=True),
+                           dim=axis)
+
+    def op_If(self, node, cond):
+        if not _is_host(cond):
+            raise UnsupportedOnnxOp(
+                f"If with a data-dependent condition (node "
+                f"'{node.name or 'If'}'); conditions must be graph-static")
+        branch = node.attr("then_branch") if bool(
+            np.asarray(cond).reshape(())) else node.attr("else_branch")
+        if branch is None:
+            raise UnsupportedOnnxOp("If without branch subgraphs")
+        return tuple(self._run_subgraph(branch, {}))
+
+    def op_Loop(self, node, m=None, cond=None, *v_init):
+        body = node.attr("body")
+        if body is None:
+            raise UnsupportedOnnxOp("Loop without a body subgraph")
+        if m is None and cond is None:
+            raise UnsupportedOnnxOp(
+                "Loop with neither trip count nor condition")
+        if m is not None and not _is_host(m):
+            raise UnsupportedOnnxOp(
+                f"Loop with a data-dependent trip count (node "
+                f"'{node.name or 'Loop'}')")
+
+        def host_bool(v, what):
+            if v is None:
+                return True
+            if not _is_host(v):
+                raise UnsupportedOnnxOp(
+                    f"Loop with a data-dependent {what} (node "
+                    f"'{node.name or 'Loop'}')")
+            return bool(np.asarray(v).reshape(()))
+
+        trip = int(np.asarray(m).reshape(())) if m is not None else None
+        if trip is not None and trip > self._LOOP_UNROLL_CAP:
+            raise UnsupportedOnnxOp(
+                f"Loop trip count {trip} exceeds the unroll cap "
+                f"{self._LOOP_UNROLL_CAP}")
+        n_vars = len(v_init)
+        n_scan = len(body.outputs) - 1 - n_vars
+        keep = host_bool(cond, "condition")
+        vars_ = list(v_init)
+        scans: list[list] = [[] for _ in range(n_scan)]
+        i = 0
+        while keep and (trip is None or i < trip):
+            if trip is None and i >= self._LOOP_UNROLL_CAP:
+                raise UnsupportedOnnxOp(
+                    f"while-style Loop exceeded the unroll cap "
+                    f"{self._LOOP_UNROLL_CAP}")
+            feeds = {body.inputs[0].name: self._iteration(i)}
+            if len(body.inputs) > 1:
+                feeds[body.inputs[1].name] = np.bool_(True)
+            for vi, v in zip(body.inputs[2:], vars_):
+                feeds[vi.name] = v
+            outs = self._run_subgraph(body, feeds, step=i)
+            keep = host_bool(outs[0], "loop-carried condition")
+            vars_ = list(outs[1:1 + n_vars])
+            for acc, v in zip(scans, outs[1 + n_vars:]):
+                acc.append(v)
+            i += 1
+        results = list(vars_)
+        for j, acc in enumerate(scans):
+            if not acc:
+                raise UnsupportedOnnxOp(
+                    "Loop with zero iterations and scan outputs")
+            results.append(self._stack(("loop_scan", id(node), j), acc))
+        return tuple(results) if len(results) != 1 else results[0]
+
+    def op_Scan(self, node, *args):
+        """Opset-9+ Scan: N state variables and M scan inputs; the body
+        takes one slice of each scan input per step, and the static
+        sequence length unrolls like Loop."""
+        if self.opset == 8:
+            raise UnsupportedOnnxOp(
+                "opset-8 Scan (sequence_lens/batch form) is not supported")
+        body = node.attr("body")
+        m_scan = node.attr("num_scan_inputs")
+        if body is None or m_scan is None:
+            raise UnsupportedOnnxOp("Scan needs body and num_scan_inputs")
+        n_state = len(args) - m_scan
+        if n_state < 0:
+            raise UnsupportedOnnxOp("Scan with fewer inputs than "
+                                    "num_scan_inputs")
+        states = list(args[:n_state])
+        scan_in = list(args[n_state:])
+        in_axes = list(node.attr("scan_input_axes") or [0] * m_scan)
+        in_dirs = list(node.attr("scan_input_directions") or [0] * m_scan)
+        out_axes = node.attr("scan_output_axes")
+        out_dirs = node.attr("scan_output_directions")
+        t_len = int(scan_in[0].shape[in_axes[0] % np.ndim(scan_in[0])])
+        if t_len > self._LOOP_UNROLL_CAP:
+            raise UnsupportedOnnxOp(
+                f"Scan length {t_len} exceeds the unroll cap "
+                f"{self._LOOP_UNROLL_CAP}")
+        n_scan_out = len(body.outputs) - n_state
+        accs: list[list] = [[] for _ in range(n_scan_out)]
+        for t in range(t_len):
+            feeds = dict(zip((vi.name for vi in body.inputs[:n_state]),
+                             states))
+            for j, (x, ax, d) in enumerate(zip(scan_in, in_axes, in_dirs)):
+                idx = t_len - 1 - t if d else t
+                ax = ax % np.ndim(x)
+                if _is_host(x):
+                    sl = self._memo(
+                        ("scan_in", id(node), j, idx), (x,),
+                        lambda x=x, idx=idx, ax=ax: np.take(x, idx, axis=ax))
+                else:
+                    sl = x.select(ax, idx)
+                feeds[body.inputs[n_state + j].name] = sl
+            outs = self._run_subgraph(body, feeds, step=t)
+            states = list(outs[:n_state])
+            for acc, v in zip(accs, outs[n_state:]):
+                acc.append(v)
+        results = list(states)
+        for j, acc in enumerate(accs):
+            if out_dirs and j < len(out_dirs) and out_dirs[j]:
+                acc = acc[::-1]
+            ax = out_axes[j] if out_axes and j < len(out_axes) else 0
+            results.append(self._stack(("scan_out", id(node), j), acc, ax))
+        return tuple(results) if len(results) != 1 else results[0]
+
+    # -- recurrent ops ---------------------------------------------------------
+    #
+    # Static-length recurrences unroll step by step, as the JAX handlers
+    # unroll them at trace time: the same gate order, bias split and
+    # summation order, so each step is the same arithmetic. Default
+    # activations only; other configurations raise typed errors.
+
+    def _rnn_common(self, node, x):
+        """Shared RNN/GRU/LSTM setup. Returns (directions, seq_len)."""
+        if node.attr("layout", 0) != 0:
+            raise UnsupportedOnnxOp(f"{node.op_type} layout=1")
+        if node.attr("clip") is not None:
+            raise UnsupportedOnnxOp(f"{node.op_type} clip")
+        direction = node.attr("direction", b"forward")
+        direction = direction.decode() if isinstance(direction, bytes) \
+            else direction
+        if direction not in ("forward", "reverse", "bidirectional"):
+            raise UnsupportedOnnxOp(
+                f"{node.op_type} direction '{direction}'")
+        seq_len = int(x.shape[0])
+        if seq_len > self._LOOP_UNROLL_CAP:
+            raise UnsupportedOnnxOp(
+                f"{node.op_type} sequence length {seq_len} exceeds the "
+                f"unroll cap {self._LOOP_UNROLL_CAP}")
+        dirs = ["forward", "reverse"] if direction == "bidirectional" \
+            else [direction]
+        return dirs, seq_len
+
+    @staticmethod
+    def _rnn_acts(node, defaults):
+        acts = node.attr("activations")
+        if acts is not None:
+            names = [a.decode() if isinstance(a, bytes) else a for a in acts]
+            # A bidirectional node lists both directions' activations.
+            if names not in (defaults, defaults + defaults):
+                raise UnsupportedOnnxOp(
+                    f"{node.op_type} non-default activations {names}")
+
+    @staticmethod
+    def _rnn_run(x, seq_len, reverse, cell):
+        """Drive one direction: cell(xt) per step; outputs in time order."""
+        steps = range(seq_len - 1, -1, -1) if reverse else range(seq_len)
+        ys = [None] * seq_len
+        for t in steps:
+            ys[t] = cell(x[t])
+        return ys
+
+    def op_RNN(self, node, x, w, r, b=None, sequence_lens=None,
+               initial_h=None):
+        if sequence_lens is not None:
+            raise UnsupportedOnnxOp("RNN sequence_lens")
+        self._rnn_acts(node, ["Tanh"])
+        dirs, seq_len = self._rnn_common(node, x)
+        hid = int(np.asarray(node.attr("hidden_size") or w.shape[1]))
+        batch = int(x.shape[1])
+        m, (x, w, r, b, initial_h) = self._lib(x, w, r, b, initial_h)
+        y_dirs, h_dirs = [], []
+        for d, dname in enumerate(dirs):
+            wd, rd = w[d], r[d]
+            wb = b[d][:hid] + b[d][hid:] if b is not None else 0.0
+            h = initial_h[d] if initial_h is not None \
+                else m.zeros((batch, hid), x.dtype)
+            state = {"h": h}
+
+            def cell(xt, wd=wd, rd=rd, wb=wb, state=state):
+                state["h"] = m.tanh(m.matmul(xt, wd.T)
+                                    + m.matmul(state["h"], rd.T) + wb)
+                return state["h"]
+
+            ys = self._rnn_run(x, seq_len, dname == "reverse", cell)
+            y_dirs.append(m.stack(ys))
+            h_dirs.append(ys[0 if dname == "reverse" else -1])
+        return m.stack(y_dirs, 1), m.stack(h_dirs)
+
+    def op_GRU(self, node, x, w, r, b=None, sequence_lens=None,
+               initial_h=None):
+        if sequence_lens is not None:
+            raise UnsupportedOnnxOp("GRU sequence_lens")
+        self._rnn_acts(node, ["Sigmoid", "Tanh"])
+        dirs, seq_len = self._rnn_common(node, x)
+        lbr = node.attr("linear_before_reset", 0)
+        hid = int(np.asarray(node.attr("hidden_size") or w.shape[1] // 3))
+        batch = int(x.shape[1])
+        m, (x, w, r, b, initial_h) = self._lib(x, w, r, b, initial_h)
+
+        def sig(v):
+            return 1.0 / (1.0 + m.exp(-v))
+
+        y_dirs, h_dirs = [], []
+        for d, dname in enumerate(dirs):
+            wz, wr_, wh = (w[d][i * hid:(i + 1) * hid] for i in range(3))
+            rz, rr, rh = (r[d][i * hid:(i + 1) * hid] for i in range(3))
+            if b is not None:
+                (wbz, wbr, wbh, rbz, rbr, rbh) = (
+                    b[d][i * hid:(i + 1) * hid] for i in range(6))
+            else:
+                wbz = wbr = wbh = rbz = rbr = rbh = 0.0
+            h = initial_h[d] if initial_h is not None \
+                else m.zeros((batch, hid), x.dtype)
+            state = {"h": h}
+
+            def cell(xt, wz=wz, wr_=wr_, wh=wh, rz=rz, rr=rr, rh=rh,
+                     wbz=wbz, wbr=wbr, wbh=wbh, rbz=rbz, rbr=rbr, rbh=rbh,
+                     state=state):
+                hp = state["h"]
+                z = sig(m.matmul(xt, wz.T) + m.matmul(hp, rz.T) + wbz + rbz)
+                rg = sig(m.matmul(xt, wr_.T) + m.matmul(hp, rr.T) + wbr
+                         + rbr)
+                if lbr:
+                    n = m.tanh(m.matmul(xt, wh.T) + wbh
+                               + rg * (m.matmul(hp, rh.T) + rbh))
+                else:
+                    n = m.tanh(m.matmul(xt, wh.T) + wbh
+                               + m.matmul(rg * hp, rh.T) + rbh)
+                state["h"] = (1.0 - z) * n + z * hp
+                return state["h"]
+
+            ys = self._rnn_run(x, seq_len, dname == "reverse", cell)
+            y_dirs.append(m.stack(ys))
+            h_dirs.append(ys[0 if dname == "reverse" else -1])
+        return m.stack(y_dirs, 1), m.stack(h_dirs)
+
+    def op_LSTM(self, node, x, w, r, b=None, sequence_lens=None,
+                initial_h=None, initial_c=None, p=None):
+        if sequence_lens is not None:
+            raise UnsupportedOnnxOp("LSTM sequence_lens")
+        if p is not None:
+            raise UnsupportedOnnxOp("LSTM peepholes")
+        if node.attr("input_forget", 0):
+            raise UnsupportedOnnxOp("LSTM input_forget=1")
+        self._rnn_acts(node, ["Sigmoid", "Tanh", "Tanh"])
+        dirs, seq_len = self._rnn_common(node, x)
+        hid = int(np.asarray(node.attr("hidden_size") or w.shape[1] // 4))
+        batch = int(x.shape[1])
+        m, (x, w, r, b, initial_h, initial_c) = self._lib(
+            x, w, r, b, initial_h, initial_c)
+
+        def sig(v):
+            return 1.0 / (1.0 + m.exp(-v))
+
+        y_dirs, h_dirs, c_dirs = [], [], []
+        for d, dname in enumerate(dirs):
+            # ONNX gate order: i, o, f, c.
+            wi, wo, wf, wc = (w[d][i * hid:(i + 1) * hid] for i in range(4))
+            ri, ro, rf, rc = (r[d][i * hid:(i + 1) * hid] for i in range(4))
+            if b is not None:
+                (wbi, wbo, wbf, wbc, rbi, rbo, rbf, rbc) = (
+                    b[d][i * hid:(i + 1) * hid] for i in range(8))
+            else:
+                wbi = wbo = wbf = wbc = rbi = rbo = rbf = rbc = 0.0
+            h = initial_h[d] if initial_h is not None \
+                else m.zeros((batch, hid), x.dtype)
+            c = initial_c[d] if initial_c is not None \
+                else m.zeros((batch, hid), x.dtype)
+            state = {"h": h, "c": c}
+
+            def cell(xt, wi=wi, wo=wo, wf=wf, wc=wc, ri=ri, ro=ro, rf=rf,
+                     rc=rc, wbi=wbi, wbo=wbo, wbf=wbf, wbc=wbc, rbi=rbi,
+                     rbo=rbo, rbf=rbf, rbc=rbc, state=state):
+                hp, cp = state["h"], state["c"]
+                i_g = sig(m.matmul(xt, wi.T) + m.matmul(hp, ri.T) + wbi + rbi)
+                f_g = sig(m.matmul(xt, wf.T) + m.matmul(hp, rf.T) + wbf + rbf)
+                g_g = m.tanh(m.matmul(xt, wc.T) + m.matmul(hp, rc.T) + wbc
+                             + rbc)
+                o_g = sig(m.matmul(xt, wo.T) + m.matmul(hp, ro.T) + wbo + rbo)
+                state["c"] = f_g * cp + i_g * g_g
+                state["h"] = o_g * m.tanh(state["c"])
+                return state["h"]
+
+            ys = self._rnn_run(x, seq_len, dname == "reverse", cell)
+            y_dirs.append(m.stack(ys))
+            h_dirs.append(ys[0 if dname == "reverse" else -1])
+            c_dirs.append(state["c"])
+        return m.stack(y_dirs, 1), m.stack(h_dirs), m.stack(c_dirs)
+
+    # -- normalization extras --------------------------------------------------
+
+    def op_MeanVarianceNormalization(self, node, x):
+        axes = node.attr("axes", [0, 2, 3])
+        axes = tuple(int(a) % x.ndim for a in np.asarray(axes).reshape(-1))
+        m, (x,) = self._lib(x)
+        mu = m.mean(x, axis=axes, keepdims=True)
+        var = m.mean(m.square(x), axis=axes, keepdims=True) - m.square(mu)
+        return (x - mu) / m.sqrt(var + 1e-9)
+
+    def _lp_norm(self, x, p, axes, what):
+        """The L1 or L2 norm of ``x`` over ``axes``, kept dims."""
+        if p not in (1, 2):
+            raise UnsupportedOnnxOp(f"{what} p={p}")
+        m, (x,) = self._lib(x)
+        if p == 1:
+            return m.sum(m.abs(x), axis=axes, keepdims=True)
+        return m.sqrt(m.sum(m.square(x), axis=axes, keepdims=True))
+
+    def op_LpNormalization(self, node, x):
+        axis = node.attr("axis", -1) % x.ndim
+        return x / self._lp_norm(x, node.attr("p", 2), (axis,),
+                                 "LpNormalization")
+
+    def op_GlobalLpPool(self, node, x):
+        return self._lp_norm(x, node.attr("p", 2), tuple(range(2, x.ndim)),
+                             "GlobalLpPool")
+
+    def op_LpPool(self, node, x):
+        p = node.attr("p", 2)
+        if p not in (1, 2):
+            raise UnsupportedOnnxOp(f"LpPool p={p}")
+        m = _math(x)
+        powered = m.abs(x) if p == 1 else m.square(x)
+        out = self._pool(node, powered, "sum")
+        return out if p == 1 else _math(out).sqrt(out)
 
 
 def lower(model: Model | bytes | str, compute_dtype=None) -> "OnnxFunction":
@@ -2553,6 +3832,16 @@ def maybe_fuse_frontend(model: Model, compute_dtype) -> int:
     from .fuse import fuse_mel_frontend
 
     return fuse_mel_frontend(model.graph)
+
+
+def _subgraphs(graph):
+    """Every subgraph attribute under ``graph`` (If branches, Loop and Scan
+    bodies), nested ones included."""
+    for n in graph.nodes:
+        for a in n.attrs.values():
+            if a.g is not None:
+                yield a.g
+                yield from _subgraphs(a.g)
 
 
 class OnnxFunction:
@@ -2596,6 +3885,20 @@ class OnnxFunction:
                 and arr.nbytes >= LIFT_PARAM_BYTES
             ):
                 self.params[name] = self._eval.const.pop(name)
+        # Large float initializers inside If/Loop/Scan bodies lift too,
+        # under the JAX lowering's names (so a params dict carries between
+        # the two packages); they reach the bodies through the outer
+        # environment. A name the top level already holds stays inline.
+        for sub in _subgraphs(self.graph):
+            for name, t in sub.initializers.items():
+                arr = t.array
+                if (name and name not in self.params
+                        and name not in self._eval.const
+                        and isinstance(arr, np.ndarray)
+                        and arr.dtype.kind == "f"
+                        and arr.nbytes >= LIFT_PARAM_BYTES):
+                    self.params[name] = arr
+                    self._eval.lifted_params.add(name)
 
     def prepare(self, params: dict[str, torch.Tensor]) -> None:
         """Lay out the weights of every front-end that runs a CUDA kernel

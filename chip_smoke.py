@@ -45,10 +45,18 @@ Then ``main_path_perch_qdq``: Perch v2 rewritten into the QDQ form of its
 registry ``int8-arm`` variant (:func:`qdq_graph`) through ``analyze`` in
 bf16, ``conv1d_stft`` taking the framer weight a DequantizeLinear makes on
 the card; one chunk against the port's fp32 CPU run and one step with no
-host sync (``torch.cuda.set_sync_debug_mode("error")``). At the end,
-``qlinear_ops`` (the QOperator integer products bit for bit at the
-``int8_ops`` shapes) and ``ops_breadth`` (every case of
-``tests/torch_op_cases.py`` on the card against the CPU).
+host sync (``torch.cuda.set_sync_debug_mode("error")``). And
+``main_path_seq``: a spectrogram transformer at AST-base width and depth
+(``tests/torch_seq_graphs.py``: v3.0's front end, 12 encoder layers as one
+scan-over-layers ``Loop`` of ORT-optimizer layers, the head behind an
+``If``) through ``analyze`` in bf16, through ``fused_logmel``; one chunk
+in bf16 and fp32 on the card and on the CPU (``seq_chunk``), one step
+with no host sync and ``step_seq``. At the end, ``qlinear_ops`` (the
+QOperator integer products bit for bit at the ``int8_ops`` shapes) and
+``ops_breadth`` (every case of ``tests/torch_op_cases.py`` on the card
+against the CPU, each refusal refused on the card, each case that runs
+called a second time with no host sync, and the recurrences' kernels per
+time step).
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after, and must have launched its kernel (the native path: none). Each model's bf16, int8 and
@@ -84,6 +92,9 @@ from pathlib import Path
 LOGMEL_Q99_BOUND = 5e-2
 CONV_REL_BOUND = 2e-2
 SCORE_DRIFT_BOUND = 5e-2
+#: The spectrogram transformer's fp32 scores on the card against the
+#: port's fp32 CPU run of the same chunk (the product's fp32 parity budget).
+SEQ_FP32_BOUND = 1e-3
 BATCH = 32
 SEED = 1
 #: Timing: calls queued back to back per window, and windows (median).
@@ -228,10 +239,12 @@ def timed_against_plain(rec, kernel, plain, library=None, key="library_ms"):
 
 
 def logmel_kernel_phase(w24, fb24, hop24, eps, dev):
-    """fused_logmel against fused_logmel_reference at the main path's
-    shapes (v2.4 at batch 16, 32 and 64, the CUDA default), the v3.0
-    geometry, an odd hop, a bf16 signal and a T below one frame tile; timed
-    beside a bf16 cuBLAS composition of the same front-end."""
+    """fused_logmel against fused_logmel_reference at the main paths'
+    shapes (v2.4 at batch 16, 32 and 64, the CUDA default; the v3.0
+    geometry at batch 16 and at batch 32, which the v3.0 and spectrogram
+    transformer paths run), an odd hop, a bf16 signal and a T below one
+    frame tile; timed beside a bf16 cuBLAS composition of the same
+    front-end."""
     import numpy as np
     import torch
 
@@ -248,6 +261,7 @@ def logmel_kernel_phase(w24, fb24, hop24, eps, dev):
         ("v24_b32", w24, fb24, hop24, BATCH, 144_000, f32, True),
         ("v24_b64", w24, fb24, hop24, 64, 144_000, f32, True),
         ("v30_b16", w30, fb30, 320, 16, 160_000, f32, True),
+        ("v30_b32", w30, fb30, 320, BATCH, 160_000, f32, True),
         ("v24_odd_hop", w24, fb24, hop24 + 1, 4, 144_000, f32, True),
         ("v24_bf16_signal", w24, fb24, hop24, 4, 144_000, bf16, False),
         ("v24_short_t", w24, fb24, hop24, 2, 6_000, f32, False),
@@ -642,12 +656,15 @@ def qdq_graph(model_bytes: bytes, act_scales: dict) -> bytes:
 
 
 def ops_breadth_phase(dev):
-    """Every case of the op table (``tests/torch_op_cases.py``: the
-    structure, elementwise, reduction, spatial, quantized and signal
-    families, bf16 variants included) through the port on the card against
-    its CPU run: integer, bool, shape, index and quantized outputs bit for
-    bit, floats within the case family's bound. A device value the card run
-    returns must be on the card (no handler falls back to the CPU)."""
+    """Every case of the op table (``tests/torch_op_cases.py``: every
+    family of the evaluator's 178 handlers, bf16 variants included) through
+    the port on the card against its CPU run: integer, bool, shape, index
+    and quantized outputs bit for bit, floats within the case family's
+    bound. A device value the card run returns must be on the card (no
+    handler falls back to the CPU), and each refusal case is refused on the
+    card as in the table. Every case that runs then makes a second call
+    with no host sync (:func:`case_sync`). Beside them, the recurrences'
+    kernels per time step."""
     import torch
     import torch_op_cases as oc
 
@@ -657,6 +674,12 @@ def ops_breadth_phase(dev):
     failed, ops, runs = [], set(), 0
     for c in oc.all_cases():
         ops.update(n.op_type for n in load_model(c.model).graph.nodes)
+        if c.refused:
+            runs += 1
+            why = refusal_on_card(c, dev)
+            if why is not None:
+                failed.append(f"{c.id}: {why}")
+            continue
         for bf16 in ((False, True) if c.bf16 else (False,)):
             model, feeds = oc.bf16_model(c) if bf16 else (c.model, c.feeds)
             card, _ = oc.run_port(model, feeds, bf16, dev)
@@ -671,11 +694,57 @@ def ops_breadth_phase(dev):
                     failed.append(f"{c.id}{'-bf16' if bf16 else ''}"
                                   f"[{i}]: {why}")
     torch.cuda.synchronize()
+    synced, sync_runs = [], 0
+    for c in oc.all_cases():
+        if c.refused:
+            continue
+        for bf16 in ((False, True) if c.bf16 else (False,)):
+            model, feeds = oc.bf16_model(c) if bf16 else (c.model, c.feeds)
+            sync_runs += 1
+            why = case_sync(model, feeds, bf16, dev)
+            if why is not None:
+                synced.append(f"{c.id}{'-bf16' if bf16 else ''}: {why}")
     emit({"phase": "ops_breadth", "cases": runs, "op_types": len(ops),
           "failed": failed[:20], "n_failed": len(failed),
+          "sync_checked": sync_runs, "synced": synced[:20],
+          "n_synced": len(synced),
+          "recurrent_launches": recurrent_launches(dev),
           "seconds": time.perf_counter() - t0})
     check(not failed, f"ops_breadth: {len(failed)} cases differ: "
           f"{failed[:5]}")
+    check(not synced, f"ops_breadth: {len(synced)} cases sync the card: "
+          f"{synced[:5]}")
+
+
+def case_sync(model, feeds, bf16, dev):
+    """A case graph's second call on the card under
+    ``torch.cuda.set_sync_debug_mode("error")``, after a warm call that
+    copies its constants once: None when no handler syncs the card (a host
+    value read back, or a fresh host array copied to the card), else the
+    error."""
+    import numpy as np
+    import torch
+
+    from birda_tpu_torch.onnx import lowering as tl
+    from birda_tpu_torch.onnx.proto import load_model
+
+    fn = tl.OnnxFunction(load_model(model),
+                         compute_dtype=torch.bfloat16 if bf16 else None)
+    params = {k: torch.from_numpy(np.array(v)).to(dev)
+              for k, v in fn.params.items()}
+    args = [torch.from_numpy(np.array(f)).to(dev) for f in feeds]
+    with torch.inference_mode():
+        fn(*args, params=params)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn(*args, params=params)
+        except RuntimeError as e:
+            return str(e)[:200]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    return None
 
 
 def qlinear_ops_phase(cases, int8_results, dev):
@@ -783,6 +852,92 @@ def qlinear_ops_phase(cases, int8_results, dev):
     return results
 
 
+def refusal_on_card(c, dev):
+    """None when the port refuses the refusal case ``c`` on the card as
+    the case table says (``lower`` with ``OnnxGraphUnsupported``, or the
+    call with ``UnsupportedOnnxOp``), else why not."""
+    import torch_op_cases as oc
+
+    from birda_tpu_torch.errors import OnnxGraphUnsupported
+    from birda_tpu_torch.onnx.lowering import UnsupportedOnnxOp
+
+    want = OnnxGraphUnsupported if c.refused == "preflight" \
+        else UnsupportedOnnxOp
+    try:
+        oc.run_port(c.model, c.feeds, False, dev)
+    except want:
+        return None
+    except Exception as e:  # noqa: BLE001 - reported as the case's failure
+        return f"{type(e).__name__} instead of {want.__name__}: {e}"[:200]
+    return f"ran instead of raising {want.__name__}"
+
+
+def recurrent_launches(dev):
+    """Kernel launches per time step of the unrolled recurrences: the case
+    table's RNN, GRU and LSTM graphs (5 steps, batch 2, hidden 3) on the
+    card, one profiled call after a warm one, over the steps and directions
+    run: the runtime's launch calls on the host (``launches``) beside the
+    kernels the device trace shows (``kernels``)."""
+    import torch
+    import torch_op_cases as oc
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from birda_tpu_torch.onnx.lowering import lower
+
+    cases = {c.id: c for c in oc.recurrent_cases()}
+    out = {}
+    for cid, dirs in (("rnn-forward", 1), ("gru-forward", 1),
+                      ("lstm-forward", 1), ("lstm-bidirectional", 2)):
+        c = cases[cid]
+        fn = lower(c.model)
+        x = torch.from_numpy(c.feeds[0]).to(dev)
+        fn(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn(x)
+            torch.cuda.synchronize()
+        events = prof.events()
+        kernels = sum(1 for e in events if e.device_type == DeviceType.CUDA)
+        launches = sum(1 for e in events if e.device_type == DeviceType.CPU
+                       and "LaunchKernel" in e.name)
+        steps = c.feeds[0].shape[0] * dirs
+        out[cid] = {"launches": launches, "kernels": kernels, "steps": steps,
+                    "launches_per_step": launches / steps}
+    return out
+
+
+def sync_check(model, rows, dev):
+    """One step of ``model`` on ``rows`` (``[B, S]`` float32) on the card
+    under ``torch.cuda.set_sync_debug_mode("error")``, after a warm step
+    that carries the params to the card and copies the host folds once:
+    None when no handler reads a device value on the host, else the error
+    and the port's frames it came from."""
+    import traceback
+
+    import numpy as np
+    import torch
+
+    x = torch.from_numpy(np.ascontiguousarray(rows)).to(dev)
+    sync = None
+    with torch.inference_mode():
+        model.apply(x)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            model.apply(x)
+        except RuntimeError as e:
+            frames = [f"{f.filename.split('birda_tpu_torch/')[-1]}:{f.lineno}"
+                      f" {f.name}" for f in traceback.extract_tb(
+                          e.__traceback__) if "birda_tpu_torch" in f.filename]
+            sync = {"error": str(e)[:300], "where": frames[-3:]}
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    return sync
+
+
 def perch_qdq_phase(tmp: Path, onnx_perch, labels_path, labels, chunk,
                     fp32_float, dev):
     """Perch v2 in its ``int8-arm`` QDQ form (:func:`qdq_graph` of the
@@ -797,8 +952,6 @@ def perch_qdq_phase(tmp: Path, onnx_perch, labels_path, labels, chunk,
     ``torch.cuda.set_sync_debug_mode("error")`` (no handler reads a device
     value on the host); and the steady step (``step_perch_qdq``). Returns
     the launch counts."""
-    import traceback
-
     import numpy as np
     import torch
 
@@ -840,23 +993,7 @@ def perch_qdq_phase(tmp: Path, onnx_perch, labels_path, labels, chunk,
     drift = float(np.abs(scores["card_bf16"] - scores["cpu_fp32"]).max())
 
     model = onnx_model(path, contract, labels, dtype=torch.bfloat16)
-    x = torch.from_numpy(np.ascontiguousarray(
-        chunk[:BATCH * seg].reshape(BATCH, seg))).to(dev)
-    with torch.inference_mode():
-        model.apply(x)  # params to the card, host folds copied once
-        torch.cuda.synchronize()
-        sync = None
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            model.apply(x)
-        except RuntimeError as e:
-            frames = [f"{f.filename.split('birda_tpu_torch/')[-1]}:{f.lineno}"
-                      f" {f.name}" for f in traceback.extract_tb(
-                          e.__traceback__) if "birda_tpu_torch" in f.filename]
-            sync = {"error": str(e)[:300], "where": frames[-3:]}
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
+    sync = sync_check(model, chunk[:BATCH * seg].reshape(BATCH, seg), dev)
     emit({"phase": "perch_qdq_chunk", "rows": BATCH, "classes": n,
           "max_score_drift": drift, "max_fp32_score": top,
           "drift_over_max_score": drift / top, "bound": SCORE_DRIFT_BOUND,
@@ -1631,6 +1768,92 @@ def v30_phase(tmp: Path):
     return launches
 
 
+def seq_phase(tmp: Path, dev):
+    """The spectrogram transformer of ``tests/torch_seq_graphs.py`` at full
+    width and depth (BirdNET v3.0's front end, a 16x16/10 patch embedding
+    into 588 tokens, 12 ORT-form encoder layers as one scan-over-layers
+    Loop at hidden 768, 12 heads, MLP 3072, the head behind an If with its
+    [768, 11560] weight a branch initializer; random weights from
+    ``SEED``): ``analyze(device="auto")`` in bf16 at batch 32 over one
+    generated 60 s recording at 32 kHz, through ``fused_logmel``. Then one
+    32-row chunk of a 160 s recording on the card and on the CPU, each in
+    bf16 and fp32: bf16 against fp32 on the card within
+    ``SCORE_DRIFT_BOUND``, the card's fp32 against the CPU's within
+    ``SEQ_FP32_BOUND``, and, reported beside them, the CPU's bf16 against
+    its fp32 and the card's bf16 against the CPU's; one step with no host
+    sync; and the steady step (``step_seq``). Returns the launch counts."""
+    import torch
+    import torch_seq_graphs as sg
+
+    from birda_tpu_torch.inference.classifier import BirdClassifier
+    from birda_tpu_torch.models.contracts import ModelFamily, contract_for
+    from birda_tpu_torch.models.zoo import onnx_model, synthetic_labels
+
+    t0 = time.perf_counter()
+    graph = sg.build(sg.FULL, seed=SEED)
+    path = tmp / f"{sg.FULL.name}.onnx"
+    path.write_bytes(graph.model_bytes)
+    labels = synthetic_labels(sg.FULL.num_classes)
+    labels_path = tmp / f"{sg.FULL.name}-labels.txt"
+    labels_path.write_text("\n".join(labels) + "\n")
+    emit({"phase": "fixture", "graph": sg.FULL.name,
+          "params": graph.param_count, "macs_per_segment": graph.macs,
+          "tokens": graph.tokens, "layers": sg.FULL.layers,
+          "hidden": sg.FULL.hidden, "heads": sg.FULL.heads,
+          "mlp": sg.FULL.mlp, "onnx_bytes": len(graph.model_bytes),
+          "seconds": time.perf_counter() - t0})
+    del graph
+    wav = tmp / "seq_32k.wav"
+    write_wav(wav, recording(32_000, 60.0, SEED + 70), 32_000)
+    launches, _ = main_path("main_path_seq", "fused_logmel", [wav], path,
+                            labels_path, "birdnet-v30", device="auto")
+
+    contract = contract_for(ModelFamily.BIRDNET_V30)
+    n, seg = contract.num_classes, contract.sample_count
+    long_wav = tmp / "seq_32k_160s.wav"
+    write_wav(long_wav, recording(32_000, 160.0, SEED + 71), 32_000)
+    chunk = read_wav(long_wav)[:BATCH * seg]
+    scores, seconds = {}, {}
+    for name, dtype, where in (("card_bf16", torch.bfloat16, "cuda"),
+                               ("card_fp32", None, "cuda"),
+                               ("cpu_fp32", None, "cpu"),
+                               ("cpu_bf16", torch.bfloat16, "cpu")):
+        clf = BirdClassifier(onnx_model(path, contract, labels, dtype=dtype),
+                             device=where, min_confidence=0.0, top_k=n)
+        t = time.perf_counter()
+        scores[name] = full_scores(
+            clf.chunk_runner(BATCH, seg).predict_chunk(chunk, BATCH), n)
+        seconds[name] = time.perf_counter() - t
+        del clf
+    bf16 = agreement(scores["card_bf16"], scores["card_fp32"])
+    fp32 = agreement(scores["card_fp32"], scores["cpu_fp32"])
+    # A second witness of the bf16 drift: the CPU's bf16 route (the same
+    # arithmetic: bf16-rounded operands, fp32 sums, bf16 outputs) against
+    # the CPU's fp32, and the card's bf16 against it.
+    witness = {"cpu_bf16_vs_cpu_fp32": agreement(scores["cpu_bf16"],
+                                                 scores["cpu_fp32"]),
+               "card_bf16_vs_cpu_bf16": agreement(scores["card_bf16"],
+                                                  scores["cpu_bf16"])}
+    model = onnx_model(path, contract, labels, dtype=torch.bfloat16)
+    sync = sync_check(model, chunk.reshape(BATCH, seg), dev)
+    emit({"phase": "seq_chunk", "rows": BATCH, "classes": n,
+          "card_bf16_vs_card_fp32": bf16, "bound_bf16": SCORE_DRIFT_BOUND,
+          "card_fp32_vs_cpu_fp32": fp32, "bound_fp32": SEQ_FP32_BOUND,
+          **witness,
+          "max_fp32_score": float(scores["cpu_fp32"].max()),
+          "first_chunk_s": seconds, "sync_check": sync or "no sync"})
+    check(bf16["max_abs_err"] <= SCORE_DRIFT_BOUND,
+          f"seq_chunk: bf16 against fp32 on the card {bf16['max_abs_err']}")
+    check(fp32["max_abs_err"] <= SEQ_FP32_BOUND,
+          f"seq_chunk: fp32 card against CPU {fp32['max_abs_err']}")
+    check(sync is None, f"seq_chunk: a host sync in the step: {sync}")
+    steady_step("step_seq", BirdClassifier(
+        model, device="cuda", min_confidence=0.0, top_k=5), chunk)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, case, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1733,6 +1956,7 @@ def main() -> int:
         # -- 2b. the native family (synthetic:full) and BirdNET v3.0 -------
         launches_native = native_phase(wavs24)
         launches_v30 = v30_phase(tmp)
+        launches_seq = seq_phase(tmp, dev)
 
         # -- 3. Perch v2: conv1d_stft --------------------------------------
         conv = conv1d_kernel_phase(dev)
@@ -1799,6 +2023,10 @@ def main() -> int:
                      "birda_tpu/ops/stft_conv.py:241",
                      launches24.get("fused_logmel", 0), logmel["v24_b32"],
                      composed_ms=logmel["v24_b32"]["composed_ms"],
+                     v30_b32={k: logmel["v30_b32"][k] for k in (
+                         "max_abs_err", "q99_abs_err", "ms", "plain_ms",
+                         "composed_ms", "bound_ms", "bound_by",
+                         "share_of_bound")},
                      launches_int8=quant24["int8"].get("fused_logmel", 0),
                      launches_mixed=quant24["mixed"].get("fused_logmel", 0),
                      launches_bat=launches_bat.get("fused_logmel", 0),
@@ -1810,6 +2038,7 @@ def main() -> int:
                      launches_sharded=launches_sharded.get("fused_logmel",
                                                            0),
                      launches_v30=launches_v30.get("fused_logmel", 0),
+                     launches_seq=launches_seq.get("fused_logmel", 0),
                      launches_perch_qdq=launches_perch_qdq.get(
                          "fused_logmel", 0)),
         kernel_entry("conv1d_stft", "birda_tpu_torch/csrc/conv1d_stft.cu",
@@ -1825,6 +2054,7 @@ def main() -> int:
                      launches_jobs=launches_jobs.get("conv1d_stft", 0),
                      launches_sharded=launches_sharded.get("conv1d_stft", 0),
                      launches_v30=launches_v30.get("conv1d_stft", 0),
+                     launches_seq=launches_seq.get("conv1d_stft", 0),
                      launches_perch_qdq=launches_perch_qdq.get(
                          "conv1d_stft", 0)),
     ]})

@@ -31,9 +31,13 @@ from birda_tpu_torch.onnx import fullscale as port_fullscale
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("birda_tpu", "jax", "jaxlib", "flax")
+#: The test helpers ``chip_smoke.py`` imports on the card's machine, which
+#: has no jax: the op case table and the spectrogram-transformer graph.
+CHIP_HELPERS = ["tests/torch_op_cases.py", "tests/torch_seq_graphs.py"]
 PORT_SOURCES = sorted(
     str(p.relative_to(REPO))
-    for p in (REPO / "birda_tpu_torch").rglob("*.py")) + ["chip_smoke.py"]
+    for p in (REPO / "birda_tpu_torch").rglob("*.py")) + ["chip_smoke.py"] \
+    + CHIP_HELPERS
 
 
 def _imported_roots(path: Path) -> list[tuple[int, str]]:
@@ -70,6 +74,15 @@ def test_import_scan_covers_the_native_and_parallel_modules():
                 "birda_tpu_torch/parallel/sharding.py",
                 "birda_tpu_torch/locking/file_lock.py"):
         assert rel in PORT_SOURCES
+
+
+def test_import_scan_covers_every_helper_chip_smoke_imports():
+    """Every module of ``tests/`` that ``chip_smoke.py`` imports is
+    scanned too."""
+    helpers = {f"tests/{mod}.py" for _, mod in _imported_roots(
+        REPO / "chip_smoke.py") if (REPO / "tests" / f"{mod}.py").exists()}
+    assert helpers == set(CHIP_HELPERS)
+    assert set(CHIP_HELPERS) <= set(PORT_SOURCES)
 
 
 def test_import_scan_sees_imports_inside_functions(tmp_path):

@@ -2,13 +2,16 @@
 against the JAX evaluator on the CPU: each case of
 ``tests/torch_op_cases.py`` through both, at its family's bound (stated
 there), with the same dtype kind for every value; the bf16 cases also with
-the same dtype at every node."""
+the same dtype at every node; and a second call of each case makes no host
+value for the device (on the card, a copy and a sync per step)."""
 
 import pytest
 import torch
 
 import torch_op_cases as oc
-from torch_jax_parity import assert_case_matches_jax
+from torch_jax_parity import (assert_case_matches_jax,
+                              assert_second_call_copies_no_host_value,
+                              second_call_params)
 
 CASES = oc.reduction_cases() + oc.spatial_cases() + oc.signal_cases()
 BF16 = [c for c in CASES if c.bf16]
@@ -31,6 +34,11 @@ def test_matches_jax(c):
 @pytest.mark.parametrize("c", BF16, ids=[c.id for c in BF16])
 def test_bf16_matches_jax(c):
     assert_case_matches_jax(c, bf16=True)
+
+
+@pytest.mark.parametrize("c,bf16", second_call_params(CASES))
+def test_second_call_copies_no_host_value(c, bf16):
+    assert_second_call_copies_no_host_value(c, bf16)
 
 
 def test_grouped_conv_transpose_fails_as_in_jax():

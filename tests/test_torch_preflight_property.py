@@ -7,8 +7,8 @@ only if the port's evaluator raises where the JAX evaluator raises: every
 configuration that preflights clean must execute in the port without an
 ``UnsupportedOnnxOp``, and every configuration preflight flags must be
 refused by the port's ``lower`` with the aggregate ``OnnxGraphUnsupported``
-(never a raw first-op raise). A case of an op the port does not have yet is
-refused on both sides.
+(never a raw first-op raise). A case of an op neither evaluator has (the
+grid's unknown op, a dynamic output shape) is refused on both sides.
 """
 
 import numpy as np
@@ -24,11 +24,6 @@ from birda_tpu_torch.onnx.preflight import preflight
 from birda_tpu_torch.onnx.proto import load_model
 
 _vi = jax_grid._vi
-
-
-def _ported(mb) -> bool:
-    return all(hasattr(tl._Evaluator, f"op_{n.op_type}")
-               for n in load_model(mb).graph.nodes if n.op_type != "Constant")
 
 
 def _resize(attrs, opset=17):
@@ -66,6 +61,51 @@ def _upsample_attr():
     return mb, (np.arange(4, dtype=np.float32).reshape(1, 1, 2, 2),)
 
 
+def _attention(kv_cache=False, qk_mode=0):
+    """Opset-23 Attention over 4-D Q/K/V, with past K/V inputs or the raw
+    Q·Kᵀ output in a given mode."""
+    ins = ["q", "k", "v"] + (["", "pk", "pv"] if kv_cache else [])
+    outs = ["y", "pres_k", "pres_v", "qk"] if qk_mode is not None else ["y"]
+    feeds = ["q", "k", "v"] + (["pk", "pv"] if kv_cache else [])
+    mb = fo.model(
+        [fo.node("Attention", ins, outs,
+                 attrs=[fo.attr_int("qk_matmul_output_mode", qk_mode or 0)])],
+        inputs=[_vi(n, [1, 2, 3, 4]) for n in feeds],
+        outputs=[_vi(o, [1, 2, 3, 4]) for o in outs], opset=23)
+    rng = np.random.default_rng(13)
+    return mb, tuple(rng.normal(size=(1, 2, 3, 4)).astype(np.float32)
+                     for _ in feeds)
+
+
+def _mha_key_padding_mask():
+    mb = fo.model(
+        [fo.node("MultiHeadAttention", ["q", "k", "v", "", "m"], ["y"],
+                 attrs=[fo.attr_int("num_heads", 2)],
+                 domain="com.microsoft")],
+        inputs=[_vi("q", [1, 3, 8]), _vi("k", [1, 3, 8]),
+                _vi("v", [1, 3, 8]), _vi("m", [1, 3], et=6)],
+        outputs=[_vi("y", [1, 3, 8])], opset=17)
+    rng = np.random.default_rng(14)
+    return mb, tuple(rng.normal(size=(1, 3, 8)).astype(np.float32)
+                     for _ in range(3)) + (np.ones((1, 3), np.int32),)
+
+
+def _scan(opset):
+    """A running-sum Scan at ``opset`` (8 is the refused batch form)."""
+    body = fo.graph(
+        [fo.node("Add", ["s", "xi"], ["s_out"]),
+         fo.node("Identity", ["s_out"], ["yi"])],
+        inputs=[_vi("s", []), _vi("xi", [])],
+        outputs=[_vi("s_out", []), _vi("yi", [])])
+    mb = fo.model(
+        [fo.node("Scan", ["s0", "xs"], ["sf", "ys"],
+                 attrs=[fo.attr_graph("body", body),
+                        fo.attr_int("num_scan_inputs", 1)])],
+        inputs=[_vi("xs", [4])], outputs=[_vi("sf", []), _vi("ys", [4])],
+        initializers=[fo.tensor("s0", np.float32(0.0))], opset=opset)
+    return mb, (np.arange(4, dtype=np.float32),)
+
+
 S = fo.attr_str
 PORT_CASES = [
     ("resize-cubic", True, lambda: _resize([S("mode", "cubic")])),
@@ -95,6 +135,13 @@ PORT_CASES = [
     ("argmin", True, _argmin),
     ("argmin-select-last", False, lambda: _argmin(sli=1)),
     ("upsample-opset7-attribute", True, _upsample_attr),
+    ("attention", True, _attention),
+    ("attention-qk-mode-0", True, lambda: _attention(qk_mode=0)),
+    ("attention-kv-cache", False, lambda: _attention(kv_cache=True)),
+    ("attention-qk-mode-1", False, lambda: _attention(qk_mode=1)),
+    ("mha-key-padding-mask", False, _mha_key_padding_mask),
+    ("scan-opset9", True, lambda: _scan(9)),
+    ("scan-opset8", False, lambda: _scan(8)),
 ]
 
 CASES = [(name, ok, build) for name, ok, build in jax_grid.CASES] \
@@ -105,7 +152,6 @@ CASES = [(name, ok, build) for name, ok, build in jax_grid.CASES] \
                          ids=[i for i, _, _ in CASES])
 def test_preflight_execute_consistency(expect_ok, build):
     mb, args = build()
-    expect_ok = expect_ok and _ported(mb)
     findings = preflight(mb, evaluator=tl._Evaluator)
     if expect_ok:
         assert findings == [], "\n".join(f.render() for f in findings)
@@ -128,10 +174,10 @@ def test_every_ported_static_raise_has_a_case():
     ops = {load_model(b()[0]).graph.nodes[0].op_type: set()
            for _, _, b in CASES}
     for _, ok, b in CASES:
-        mb = b()[0]
-        if _ported(mb):
-            ops[load_model(mb).graph.nodes[0].op_type].add(ok)
+        ops[load_model(b()[0]).graph.nodes[0].op_type].add(ok)
     for op in ("CumSum", "TopK", "Resize", "MaxPool", "DFT", "ArgMax",
                "ArgMin", "Pad", "Cast", "STFT", "QLinearAveragePool",
-               "Upsample"):
+               "Upsample", "Attention", "MultiHeadAttention", "GridSample",
+               "FusedMatMul", "BitShift", "GatherND", "GroupNormalization",
+               "If", "Loop", "Scan"):
         assert ops[op] == {True, False}, op

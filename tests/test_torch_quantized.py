@@ -4,7 +4,8 @@ and against the numpy oracles of ``tests/test_quantized.py``.
 
 - Each quantized case of ``tests/torch_op_cases.py`` through both
   evaluators: integer outputs bit for bit; the QLinear ops that requantize
-  a float intermediate at most one step off on a counted share.
+  a float intermediate at most one step off on a counted share; and a
+  second call of each makes no host value for the device.
 - The integer products (QLinearConv, QLinearMatMul, MatMulInteger,
   ConvInteger) bit for bit against float64 oracles, with uint8 zero points,
   int8 -128, per-channel weight scales and padding; the wide-integer routes
@@ -18,7 +19,9 @@ import torch.nn.functional as TF
 
 import torch_op_cases as oc
 from test_quantized import q_ref
-from torch_jax_parity import assert_case_matches_jax, run_port
+from torch_jax_parity import (assert_case_matches_jax,
+                              assert_second_call_copies_no_host_value,
+                              run_port, second_call_params)
 
 from birda_tpu_torch.onnx import lowering as tl
 
@@ -44,6 +47,11 @@ def test_matches_jax(c):
 @pytest.mark.parametrize("c", BF16, ids=[c.id for c in BF16])
 def test_bf16_matches_jax(c):
     assert_case_matches_jax(c, bf16=True)
+
+
+@pytest.mark.parametrize("c,bf16", second_call_params(CASES))
+def test_second_call_copies_no_host_value(c, bf16):
+    assert_second_call_copies_no_host_value(c, bf16)
 
 
 # -- numpy oracles ------------------------------------------------------------

@@ -98,6 +98,68 @@ def assert_case_matches_jax(c: oc.Case, bf16: bool = False) -> None:
             {k: v[1] for k, v in jd.items()}
 
 
+def assert_refused_as_in_jax(c: oc.Case) -> None:
+    """A refusal case: both evaluators refuse it the same way, with the
+    same message: ``lower`` raises the aggregate ``OnnxGraphUnsupported``
+    (``c.refused == "preflight"``) or the call raises
+    ``UnsupportedOnnxOp`` (``"run"``)."""
+    import pytest
+
+    from birda_tpu import errors as jax_errors
+
+    from birda_tpu_torch import errors
+
+    if c.refused == "preflight":
+        with pytest.raises(jax_errors.OnnxGraphUnsupported) as want:
+            jl.lower(c.model)
+        with pytest.raises(errors.OnnxGraphUnsupported) as got:
+            tl.lower(c.model)
+    else:
+        assert c.refused == "run", c.refused
+        jfn, tfn = jl.lower(c.model), tl.lower(c.model)
+        with pytest.raises(jl.UnsupportedOnnxOp) as want:
+            jfn(*(jnp.asarray(f) for f in c.feeds), params=jfn.params)
+        with pytest.raises(tl.UnsupportedOnnxOp) as got:
+            tfn(*(torch.from_numpy(np.array(f)) for f in c.feeds))
+    assert str(got.value) == str(want.value)
+
+
+def second_call_params(cases) -> list:
+    """pytest parameters ``(case, bf16)``: each case that runs, and its
+    bf16 variant where it has one."""
+    import pytest
+
+    return [pytest.param(c, bf16, id=c.id + ("-bf16" if bf16 else ""))
+            for c in cases if not c.refused
+            for bf16 in ((False, True) if c.bf16 else (False,))]
+
+
+def assert_second_call_copies_no_host_value(c: oc.Case,
+                                            bf16: bool = False) -> None:
+    """A step makes no host value for the device: on the card each host
+    array turned into a tensor is a copy that syncs the step. A second call
+    through one function with tensor inputs turns no host array into a
+    tensor, and each host value it returns is the first call's object (a
+    host value made afresh would be copied by every consumer)."""
+    model, feeds = oc.bf16_model(c) if bf16 else (c.model, c.feeds)
+    fn = tl.OnnxFunction(load_model(model),
+                         compute_dtype=torch.bfloat16 if bf16 else None)
+    params = {k: torch.from_numpy(np.array(v)) for k, v in fn.params.items()}
+    args = [torch.from_numpy(np.array(f)) for f in feeds]
+    first = _outs(fn(*args, params=params))
+    made = []
+    real = torch.from_numpy
+    torch.from_numpy = lambda a: made.append(a.shape) or real(a)
+    try:
+        second = _outs(fn(*args, params=params))
+    finally:
+        torch.from_numpy = real
+    assert not made, f"host arrays made tensors on the second call: {made}"
+    for i, (a, b) in enumerate(zip(first, second)):
+        if isinstance(b, np.ndarray):
+            assert b is a, f"output {i}: a new host array on each call"
+
+
 def _as_port_value(v):
     """A JAX evaluator value as the port holds it: jax arrays become CPU
     tensors (bf16 through float32, which holds it exactly), numpy stays."""

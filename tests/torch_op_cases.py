@@ -41,7 +41,8 @@ _ELEM = {np.dtype(np.float32): 1, np.dtype(np.uint8): 2,
          np.dtype(np.int8): 3, np.dtype(np.uint16): 4,
          np.dtype(np.int16): 5, np.dtype(np.int32): 6,
          np.dtype(np.int64): 7, np.dtype(np.bool_): 9,
-         np.dtype(np.float16): 10, np.dtype(np.float64): 11}
+         np.dtype(np.float16): 10, np.dtype(np.float64): 11,
+         np.dtype(np.uint32): 12, np.dtype(np.uint64): 13}
 
 
 @dataclass(frozen=True)
@@ -55,35 +56,50 @@ class Case:
     feeds: tuple = field(default=())
     #: Whether the bf16 variant (:func:`bf16_model`) applies.
     bf16: bool = False
+    #: A typed refusal both evaluators make: ``"preflight"`` (``lower``
+    #: raises ``OnnxGraphUnsupported``) or ``"run"`` (the call raises
+    #: ``UnsupportedOnnxOp``); empty for a case that runs.
+    refused: str = ""
 
 
 def graph(op, ins, feeds=None, inits=None, attrs=(), outs=1, opset=17,
           domain="", extra_nodes=()):
     """A one-node graph (plus ``extra_nodes`` after it): ``ins`` are the
     node's input names ('' for an absent one), ``feeds`` and ``inits``
-    name -> array for the graph inputs and the initializers. Returns the
-    model bytes and the feeds in order."""
+    name -> array for the graph inputs and the initializers; ``outs`` is
+    the output count or the list of output names ('' for an absent one).
+    Returns the model bytes and the feeds in order."""
     feeds = dict(feeds or {})
     inits = dict(inits or {})
-    out_names = [f"y{i}" for i in range(outs)]
+    out_names = [f"y{i}" for i in range(outs)] if isinstance(outs, int) \
+        else list(outs)
     nodes = [E.node(op, list(ins), out_names, name=f"{op.lower()}_0",
                     attrs=list(attrs), domain=domain)]
     nodes += list(extra_nodes)
-    final = out_names if not extra_nodes else ["z"]
+    final = [n for n in out_names if n] if not extra_nodes else ["z"]
     mb = E.model(
         nodes,
         inputs=[E.value_info(n, list(a.shape), elem_type=_ELEM[a.dtype])
                 for n, a in feeds.items()],
         outputs=[E.value_info(n, ["n"]) for n in final],
-        initializers=[E.tensor(n, a) for n, a in inits.items()],
+        initializers=[tensor(n, a) for n, a in inits.items()],
         opset=opset)
     return mb, tuple(feeds.values())
 
 
+def tensor(name: str, arr) -> bytes:
+    """An initializer of any dtype of ``_ELEM`` (the port's encoder writes
+    no 16- or 32-bit unsigned and no int16 tensor)."""
+    arr = np.asarray(arr)
+    body = b"".join(E._int(1, d) for d in arr.shape)
+    body += E._int(2, _ELEM[arr.dtype]) + E._str(8, name)
+    return body + E._msg(9, np.ascontiguousarray(arr).tobytes())
+
+
 def case(cid, family, op, ins, feeds=None, inits=None, attrs=(), outs=1,
-         opset=17, domain="", bf16=False):
+         opset=17, domain="", bf16=False, refused=""):
     mb, fv = graph(op, ins, feeds, inits, attrs, outs, opset, domain)
-    return Case(cid, family, mb, fv, bf16)
+    return Case(cid, family, mb, fv, bf16, refused)
 
 
 def bf16_model(c: Case) -> tuple[bytes, tuple]:
@@ -199,6 +215,8 @@ def structure_cases() -> list[Case]:
              {"x": x4}, {"i": np.array([[1, -1], [0, -2]], np.int64)}),
         case("gather-axis2-scalar", "exact", "Gather", ["x", "i"],
              {"x": x4}, {"i": np.array(-1, np.int64)}, attrs=[A("axis", 2)]),
+        case("gather-scalar-out-of-range", "exact", "Gather", ["x", "i"],
+             {"x": x4}, {"i": np.array(9, np.int64)}, attrs=[A("axis", 1)]),
         case("gather-device-indices", "exact", "Gather", ["x", "i"],
              {"x": x4, "i": np.array([3, 0, 5, -8], np.int64)},
              attrs=[A("axis", 1)]),
@@ -835,7 +853,8 @@ def all_cases() -> list[Case]:
     """Every case of the table (the quantized ones are in
     ``quantized_cases``)."""
     return (structure_cases() + elementwise_cases() + reduction_cases()
-            + spatial_cases() + signal_cases() + quantized_cases())
+            + spatial_cases() + signal_cases() + quantized_cases()
+            + late_cases())
 
 
 # -- 5. quantized -------------------------------------------------------------
@@ -1080,6 +1099,813 @@ def quantized_cases() -> list[Case]:
               "yz": np.int8(0)}, attrs=[A("channels_last", 1)], domain=MS),
     ]
     return out
+
+
+# -- 6. index and scatter, normalization, spatial extras, bitwise ----------------
+
+def _i64(v):
+    return np.asarray(v, np.int64)
+
+
+def index_cases() -> list[Case]:
+    """CastLike through the bitwise ops (``lowering.py:1789-2120`` of the
+    JAX package): index, scatter (``none``) and bitwise outputs exactly;
+    a float scatter ``add`` over duplicate indices within ``elementwise``
+    (its order is not fixed on the card; a ``mul`` over duplicates is
+    exact only on integers, so its float case has unique indices);
+    normalization, GridSample,
+    AffineGrid, Col2Im and Det within ``spatial``."""
+    x = _normal(601, (3, 5))
+    x3 = _normal(602, (2, 3, 4))
+    ints = _rng(603).integers(-9, 9, (3, 5)).astype(np.int32)
+    out = [
+        case("castlike-device-to-host-int64", "exact", "CastLike",
+             ["x", "t"], {"x": x * 10}, {"t": _i64([1])}),
+        case("castlike-device-to-device", "exact", "CastLike", ["x", "t"],
+             {"x": x * 10, "t": ints[:1, :1]}),
+        case("castlike-host-to-device", "exact", "CastLike", ["c", "t"],
+             {"t": np.zeros(2, np.int8)}, {"c": x * 10}),
+        case("castlike-host-to-host", "exact", "CastLike", ["c", "t"],
+             inits={"c": ints, "t": np.zeros(1, np.float16)}),
+        case("castlike-to-bool", "exact", "CastLike", ["x", "t"], {"x": x},
+             {"t": np.array([True])}),
+        case("eyelike", "exact", "EyeLike", ["x"], {"x": x}),
+        case("eyelike-k-dtype", "exact", "EyeLike", ["x"], {"x": x},
+             attrs=[A("k", 2), A("dtype", 6)]),
+        case("eyelike-negative-k-int", "exact", "EyeLike", ["x"],
+             {"x": ints}, attrs=[A("k", -1)]),
+        case("eyelike-host", "exact", "EyeLike", ["c"], inits={"c": x.T}),
+        case("eyelike-bf16", "exact", "EyeLike", ["x"], {"x": x}, bf16=True),
+    ]
+    idx = _i64([[0, -1, 3], [5, -4, 2]])
+    out += [
+        case("onehot-wrap-and-out-of-range", "exact", "OneHot",
+             ["i", "d", "v"], {"i": idx},
+             {"d": _i64(4), "v": np.array([0.5, 2.0], np.float32)}),
+        case("onehot-axis0", "exact", "OneHot", ["i", "d", "v"], {"i": idx},
+             {"d": _i64([3]), "v": _i64([0, 7])}, attrs=[A("axis", 0)]),
+        case("onehot-float-indices-device-values", "exact", "OneHot",
+             ["i", "d", "v"], {"i": np.array([0.0, 2.0, -1.0], np.float32),
+                               "v": np.array([-1.0, 1.0], np.float32)},
+             {"d": np.array(3.0, np.float32)}, attrs=[A("axis", 1)]),
+        case("onehot-host", "exact", "OneHot", ["i", "d", "v"],
+             inits={"i": idx, "d": _i64(5),
+                    "v": np.array([0, 1], np.int32)}),
+    ]
+    data = _normal(604, (4, 3, 5))
+    gi = _i64([[[0, 1], [-1, 2]], [[3, -3], [1, 0]]])
+    out += [
+        case("gathernd-slices", "exact", "GatherND", ["x", "i"],
+             {"x": data}, {"i": gi}),
+        case("gathernd-scalars", "exact", "GatherND", ["x", "i"],
+             {"x": data}, {"i": _i64([[0, 1, 2], [-1, -1, -1], [2, 0, 4]])}),
+        case("gathernd-device-indices", "exact", "GatherND", ["x", "i"],
+             {"x": data, "i": _i64([[1], [3], [-2]])}),
+        case("gathernd-host-data", "exact", "GatherND", ["c", "i"],
+             {"i": _i64([[2, 1]])}, {"c": data}),
+        case("gathernd-host", "exact", "GatherND", ["c", "i"],
+             inits={"c": data, "i": gi}),
+        case("gathernd-batch-dims", "exact", "GatherND", ["x", "i"],
+             {"x": data}, {"i": _i64([[0], [1], [2], [0]])},
+             attrs=[A("batch_dims", 1)], refused="preflight"),
+    ]
+    upd = _normal(605, (2, 5))
+    uniq = _i64([[2, 1], [-1, 0]])
+    dup = _i64([[1, 2], [1, 2]])
+    out += [
+        case("scatternd-none", "exact", "ScatterND", ["x", "i", "u"],
+             {"x": data, "u": upd}, {"i": uniq}),
+        case("scatternd-none-rows", "exact", "ScatterND", ["x", "i", "u"],
+             {"x": data}, {"i": _i64([[3], [0]]),
+                           "u": _normal(606, (2, 3, 5))}),
+        case("scatternd-none-device-indices", "exact", "ScatterND",
+             ["x", "i", "u"], {"x": data, "i": uniq, "u": upd}),
+        case("scatternd-add-duplicates", "elementwise", "ScatterND",
+             ["x", "i", "u"], {"x": data, "u": upd}, {"i": dup},
+             attrs=[S("reduction", "add")], opset=16),
+        case("scatternd-add-int", "exact", "ScatterND", ["x", "i", "u"],
+             {"x": ints}, {"i": _i64([[1], [1], [0]]),
+                           "u": _rng(607).integers(-5, 5, (3, 5))
+                           .astype(np.int32)},
+             attrs=[S("reduction", "add")], opset=16),
+        case("scatternd-mul", "exact", "ScatterND", ["x", "i", "u"],
+             {"x": data, "u": upd}, {"i": uniq},
+             attrs=[S("reduction", "mul")], opset=16),
+        case("scatternd-mul-duplicates-int", "exact", "ScatterND",
+             ["x", "i", "u"], {"x": ints}, {"i": _i64([[2], [2], [0]]),
+                                            "u": _rng(612).integers(
+                                                -3, 4, (3, 5))
+                                            .astype(np.int32)},
+             attrs=[S("reduction", "mul")], opset=16),
+        case("scatternd-max", "exact", "ScatterND", ["x", "i", "u"],
+             {"x": data, "u": upd}, {"i": dup},
+             attrs=[S("reduction", "max")], opset=18),
+        case("scatternd-min", "exact", "ScatterND", ["x", "i", "u"],
+             {"x": data, "u": upd}, {"i": uniq},
+             attrs=[S("reduction", "min")], opset=18),
+        case("scatternd-host", "exact", "ScatterND", ["c", "i", "u"],
+             inits={"c": data, "i": uniq, "u": upd}),
+        case("scatternd-reduction-unknown", "exact", "ScatterND",
+             ["x", "i", "u"], {"x": data, "u": upd}, {"i": uniq},
+             attrs=[S("reduction", "mean")], refused="run"),
+    ]
+    sx = _normal(608, (3, 4))
+    si = _i64([[1, 0, 2, -1], [0, 2, 1, 0]])
+    su = _normal(609, (2, 4))
+    out += [
+        case("scatterelements-none", "exact", "ScatterElements",
+             ["x", "i", "u"], {"x": sx, "u": su}, {"i": si}),
+        case("scatterelements-axis1", "exact", "ScatterElements",
+             ["x", "i", "u"], {"x": sx, "u": _normal(610, (3, 2))},
+             {"i": _i64([[0, 3], [-1, 1], [2, 0]])}, attrs=[A("axis", 1)]),
+        case("scatterelements-host", "exact", "ScatterElements",
+             ["c", "i", "u"], inits={"c": sx, "i": si, "u": su}),
+        case("scatterelements-add", "elementwise", "ScatterElements",
+             ["x", "i", "u"], {"x": sx, "u": su},
+             {"i": _i64([[1, 1, 1, 1], [1, 1, 1, 1]])},
+             attrs=[S("reduction", "add")], opset=16),
+        case("scatterelements-mul-host", "exact", "ScatterElements",
+             ["c", "i", "u"], inits={"c": sx, "i": si, "u": su},
+             attrs=[S("reduction", "mul")], opset=16),
+        case("scatterelements-max", "exact", "ScatterElements",
+             ["x", "i", "u"], {"x": sx, "u": su},
+             {"i": _i64([[0, 0, 0, 0], [0, 0, 0, 0]])},
+             attrs=[S("reduction", "max")], opset=18),
+        case("scatterelements-min", "exact", "ScatterElements",
+             ["x", "i", "u"], {"x": sx, "u": su}, {"i": si},
+             attrs=[S("reduction", "min")], opset=18),
+        case("scatter-opset9", "exact", "Scatter", ["x", "i", "u"],
+             {"x": sx, "u": su}, {"i": si}, opset=9),
+    ]
+    g4 = _normal(611, (2, 6, 3, 4))
+    out += [
+        case("groupnorm-per-channel", "spatial", "GroupNormalization",
+             ["x", "s", "b"], {"x": g4},
+             {"s": _uniform(612, (6,), 0.5, 1.5), "b": _normal(613, (6,))},
+             attrs=[A("num_groups", 3)], opset=21, bf16=True),
+        case("groupnorm-per-group", "spatial", "GroupNormalization",
+             ["x", "s", "b"], {"x": g4},
+             {"s": _uniform(614, (2,), 0.5, 1.5), "b": _normal(615, (2,))},
+             attrs=[A("num_groups", 2), F("epsilon", 1e-3)], opset=18),
+        case("groupnorm-3d-host", "spatial", "GroupNormalization",
+             ["c", "s", "b"],
+             inits={"c": _normal(616, (2, 4, 5)),
+                    "s": np.ones(4, np.float32), "b": np.zeros(4, np.float32)},
+             attrs=[A("num_groups", 4)], opset=21),
+        case("groupnorm-uneven-groups", "spatial", "GroupNormalization",
+             ["x", "s", "b"], {"x": g4},
+             {"s": np.ones(6, np.float32), "b": np.zeros(6, np.float32)},
+             attrs=[A("num_groups", 4)], opset=21, refused="run"),
+        case("rmsnorm", "spatial", "RMSNormalization", ["x", "s"],
+             {"x": x3}, {"s": _uniform(617, (4,), 0.5, 1.5)}, opset=23,
+             bf16=True),
+        case("rmsnorm-axis1", "spatial", "RMSNormalization", ["x", "s"],
+             {"x": x3}, {"s": _uniform(618, (3, 4), 0.5, 1.5)},
+             attrs=[A("axis", 1), F("epsilon", 1e-2)], opset=23),
+        case("rmsnorm-host", "spatial", "RMSNormalization", ["c", "s"],
+             inits={"c": x3, "s": np.ones(4, np.float32)}, opset=23),
+        case("simplifiedlayernorm", "spatial",
+             "SimplifiedLayerNormalization", ["x", "s"], {"x": x3},
+             {"s": _uniform(619, (4,), 0.5, 1.5)}, bf16=True),
+    ]
+    rs = _normal(620, (5, 3, 2))
+    out += [
+        case("reversesequence-time-major", "exact", "ReverseSequence",
+             ["x", "l"], {"x": rs}, {"l": _i64([5, 2, 1])}, bf16=True),
+        case("reversesequence-batch-major", "exact", "ReverseSequence",
+             ["x", "l"], {"x": rs, "l": _i64([3, 4, 0, 5, 1])},
+             attrs=[A("batch_axis", 0), A("time_axis", 1)]),
+        case("reversesequence-host", "exact", "ReverseSequence", ["c", "l"],
+             inits={"c": rs, "l": _i64([1, 5, 3])}),
+        case("centercroppad", "exact", "CenterCropPad", ["x", "s"],
+             {"x": _normal(621, (5, 4, 6))}, {"s": _i64([3, 7, 6])},
+             opset=18, bf16=True),
+        case("centercroppad-axes", "exact", "CenterCropPad", ["x", "s"],
+             {"x": _normal(622, (2, 5, 4))}, {"s": _i64([8, 2])},
+             attrs=[I("axes", [-1, 1])], opset=18),
+        case("centercroppad-host", "exact", "CenterCropPad", ["c", "s"],
+             inits={"c": x, "s": _i64([4, 4])}, opset=18),
+    ]
+    out += [
+        case("col2im", "spatial", "Col2Im", ["x", "img", "blk"],
+             {"x": _normal(623, (2, 3 * 4, 12))},
+             {"img": _i64([4, 5]), "blk": _i64([2, 2])}, opset=18,
+             bf16=True),
+        case("col2im-strides-pads-dilations", "spatial", "Col2Im",
+             ["x", "img", "blk"], {"x": _normal(624, (1, 2 * 9, 9))},
+             {"img": _i64([5, 5]), "blk": _i64([3, 3])},
+             attrs=[I("strides", [2, 2]), I("pads", [1, 1, 1, 1]),
+                    I("dilations", [1, 1])], opset=18),
+        case("col2im-dilated", "spatial", "Col2Im", ["x", "img", "blk"],
+             {"x": _normal(625, (1, 4, 12))},
+             {"img": _i64([5, 6]), "blk": _i64([2, 2])},
+             attrs=[I("dilations", [2, 2])], opset=18),
+        case("col2im-3d", "spatial", "Col2Im", ["x", "img", "blk"],
+             {"x": _normal(626, (1, 8, 8))},
+             {"img": _i64([3, 3, 3]), "blk": _i64([2, 2, 2])}, opset=18,
+             refused="run"),
+    ]
+    img = _normal(627, (2, 3, 5, 6))
+    grid = _uniform(628, (2, 4, 7, 2), -1.3, 1.3)
+    out += [
+        case("gridsample-bilinear-zeros", "spatial", "GridSample",
+             ["x", "g"], {"x": img, "g": grid}, opset=16, bf16=True),
+        case("gridsample-linear-border-align", "spatial", "GridSample",
+             ["x", "g"], {"x": img}, {"g": grid},
+             attrs=[S("mode", "linear"), S("padding_mode", "border"),
+                    A("align_corners", 1)], opset=20),
+        case("gridsample-nearest", "spatial", "GridSample", ["x", "g"],
+             {"x": img, "g": grid}, attrs=[S("mode", "nearest")], opset=20),
+        case("gridsample-bicubic", "spatial", "GridSample", ["x", "g"],
+             {"x": img, "g": grid}, attrs=[S("mode", "cubic")], opset=20,
+             refused="preflight"),
+        case("gridsample-reflection", "spatial", "GridSample", ["x", "g"],
+             {"x": img, "g": grid}, attrs=[S("padding_mode", "reflection")],
+             opset=16, refused="preflight"),
+        case("gridsample-3d", "spatial", "GridSample", ["x", "g"],
+             {"x": _normal(629, (1, 2, 3, 4, 5)),
+              "g": _uniform(630, (1, 2, 2, 2, 3), -1, 1)}, opset=20,
+             refused="run"),
+    ]
+    theta = _normal(631, (2, 2, 3), 0.5)
+    out += [
+        case("affinegrid", "spatial", "AffineGrid", ["t", "s"],
+             {"t": theta}, {"s": _i64([2, 3, 4, 5])}, opset=20),
+        case("affinegrid-align-corners", "spatial", "AffineGrid", ["t", "s"],
+             {"t": theta}, {"s": _i64([2, 1, 3, 1])},
+             attrs=[A("align_corners", 1)], opset=20),
+        case("affinegrid-host", "spatial", "AffineGrid", ["t", "s"],
+             inits={"t": theta, "s": _i64([2, 1, 2, 3])}, opset=20),
+        case("affinegrid-3d", "spatial", "AffineGrid", ["t", "s"],
+             {"t": _normal(632, (1, 3, 4))}, {"s": _i64([1, 1, 2, 2, 2])},
+             opset=20, refused="run"),
+        case("det-2x2", "spatial", "Det", ["x"],
+             {"x": _normal(633, (3, 2, 2))}),
+        case("det-3x3", "spatial", "Det", ["x"], {"x": _normal(634, (3, 3))}),
+        case("det-batched-4x4", "spatial", "Det", ["x"],
+             {"x": _normal(635, (2, 3, 4, 4))}),
+        case("det-singular", "spatial", "Det", ["x"],
+             {"x": np.array([[1, 2, 3], [2, 4, 6], [1, 0, 1]], np.float32)}),
+        case("det-host", "spatial", "Det", ["c"],
+             inits={"c": _normal(636, (2, 5, 5))}),
+    ]
+    shifts = {np.uint8: 7, np.uint16: 15, np.uint32: 31}
+    for dt, top in shifts.items():
+        name = np.dtype(dt).name
+        v = _rng(637).integers(0, np.iinfo(dt).max, (3, 4), dtype=np.uint64) \
+            .astype(dt)
+        sh = _rng(638).integers(0, top + 1, (3, 4)).astype(dt)
+        for d in ("LEFT", "RIGHT"):
+            out.append(case(f"bitshift-{d.lower()}-{name}", "exact",
+                            "BitShift", ["a", "b"], {"a": v, "b": sh},
+                            attrs=[S("direction", d)], opset=11))
+        out += [
+            case(f"bitwiseand-{name}", "exact", "BitwiseAnd", ["a", "b"],
+                 {"a": v, "b": sh[::-1].copy()}, opset=18),
+            case(f"bitwiseor-{name}", "exact", "BitwiseOr", ["a", "b"],
+                 {"a": v, "b": sh}, opset=18),
+            case(f"bitwisexor-{name}", "exact", "BitwiseXor", ["a", "b"],
+                 {"a": v, "b": v[::-1].copy()}, opset=18),
+            case(f"bitwisenot-{name}", "exact", "BitwiseNot", ["a"],
+                 {"a": v}, opset=18),
+        ]
+    u64 = _rng(639).integers(0, 2**32, (5,), dtype=np.uint64)
+    out += [
+        case("bitshift-right-uint64", "exact", "BitShift", ["a", "b"],
+             {"a": u64}, {"b": np.array([3], np.uint64)},
+             attrs=[S("direction", "RIGHT")], opset=11),
+        case("bitshift-left-host", "exact", "BitShift", ["a", "b"],
+             inits={"a": np.array([1, 3, 255], np.uint8),
+                    "b": np.array([1, 7, 0], np.uint8)},
+             attrs=[S("direction", "LEFT")], opset=11),
+        case("bitshift-bogus-direction", "exact", "BitShift", ["a", "b"],
+             {"a": np.array([1, 2], np.uint8)},
+             {"b": np.array([1], np.uint8)}, attrs=[S("direction", "UP")],
+             opset=11, refused="preflight"),
+        case("bitwiseand-int32", "exact", "BitwiseAnd", ["a", "b"],
+             {"a": ints, "b": ints[::-1].copy()}, opset=18),
+        case("bitwiseor-int8-host", "exact", "BitwiseOr", ["a", "b"],
+             inits={"a": np.array([-1, 5, 64], np.int8),
+                    "b": np.array([3, -8, 1], np.int8)}, opset=18),
+        case("bitwisexor-int64", "exact", "BitwiseXor", ["a", "b"],
+             {"a": _rng(640).integers(-99, 99, (4,)).astype(np.int64),
+              "b": _rng(641).integers(-99, 99, (4,)).astype(np.int64)},
+             opset=18),
+        case("bitwisenot-int16", "exact", "BitwiseNot", ["a"],
+             {"a": np.array([0, -1, 300, -32768], np.int16)}, opset=18),
+    ]
+    return out
+
+
+# -- 7. the transformer family --------------------------------------------------
+
+def transformer_cases() -> list[Case]:
+    """Opset-23 Attention, com.microsoft MultiHeadAttention and the fused
+    ops of ORT-optimizer exports (``lowering.py:2118-2370``): attention
+    and the layer norms within ``spatial``, the gelu forms within
+    ``transcendental``."""
+    b, h, s, d = 2, 4, 5, 8
+    q = _normal(701, (b, h, s, d))
+    k = _normal(702, (b, h, 7, d))
+    v = _normal(703, (b, h, 7, d))
+    q3 = _normal(704, (b, s, h * d))
+    k3 = _normal(705, (b, 7, 2 * d))
+    v3 = _normal(706, (b, 7, 2 * d))
+    bool_mask = _rng(707).random((s, 7)) > 0.3
+    bool_mask[:, 0] = True
+    add_mask = _normal(708, (1, 1, s, 7))
+    out = [
+        case("attention-4d", "spatial", "Attention", ["q", "k", "v"],
+             {"q": q, "k": k, "v": v}, opset=23, bf16=True),
+        case("attention-3d-gqa", "spatial", "Attention", ["q", "k", "v"],
+             {"q": q3, "k": k3, "v": v3},
+             attrs=[A("q_num_heads", h), A("kv_num_heads", 2)], opset=23,
+             bf16=True),
+        case("attention-bool-mask", "spatial", "Attention",
+             ["q", "k", "v", "m"], {"q": q, "k": k, "v": v},
+             {"m": bool_mask}, opset=23),
+        case("attention-additive-mask-scale", "spatial", "Attention",
+             ["q", "k", "v", "m"], {"q": q, "k": k, "v": v, "m": add_mask},
+             attrs=[F("scale", 0.2)], opset=23),
+        case("attention-causal-square", "spatial", "Attention",
+             ["q", "k", "v"], {"q": q, "k": q, "v": q},
+             attrs=[A("is_causal", 1)], opset=23),
+        case("attention-causal-upper-left", "spatial", "Attention",
+             ["q", "k", "v", "m"], {"q": q, "k": k, "v": v},
+             {"m": add_mask}, attrs=[A("is_causal", 1)], opset=23),
+        case("attention-softcap-after-mask", "spatial", "Attention",
+             ["q", "k", "v", "m"], {"q": q * 3, "k": k, "v": v,
+                                    "m": add_mask},
+             attrs=[F("softcap", 2.0)], opset=23),
+        case("attention-present-and-qk", "spatial", "Attention",
+             ["q", "k", "v", "m"], {"q": q, "k": k, "v": v},
+             {"m": bool_mask}, outs=4, opset=23),
+        case("attention-present-3d", "spatial", "Attention",
+             ["q", "k", "v"], {"q": q3, "k": k3, "v": v3},
+             attrs=[A("q_num_heads", h), A("kv_num_heads", 2)], outs=3,
+             opset=23),
+        case("attention-host", "spatial", "Attention", ["q", "k", "v"],
+             inits={"q": q, "k": k, "v": v}, opset=23),
+        case("attention-kv-cache", "spatial", "Attention",
+             ["q", "k", "v", "", "pk", "pv"],
+             {"q": q, "k": k, "v": v, "pk": k, "pv": v}, opset=23,
+             refused="preflight"),
+        case("attention-qk-mode", "spatial", "Attention", ["q", "k", "v"],
+             {"q": q, "k": k, "v": v},
+             attrs=[A("qk_matmul_output_mode", 1)], outs=4, opset=23,
+             refused="preflight"),
+        case("attention-3d-without-heads", "spatial", "Attention",
+             ["q", "k", "v"], {"q": q3, "k": k3, "v": v3}, opset=23,
+             refused="run"),
+        case("attention-gqa-not-a-multiple", "spatial", "Attention",
+             ["q", "k", "v"], {"q": _normal(709, (1, 3, 4, 8)),
+                               "k": _normal(710, (1, 2, 4, 8)),
+                               "v": _normal(711, (1, 2, 4, 8))}, opset=23,
+             refused="run"),
+    ]
+    hid = h * d
+    qs, ks, vs = (_normal(712 + i, (b, n, hid)) for i, n in
+                  enumerate((s, 7, 7)))
+    bias = _normal(715, (3 * hid,), 0.3)
+    packed_qkv = _normal(716, (b, s, h, 3, d))
+    packed_kv = _normal(717, (b, 7, h, 2, d))
+    ms = "com.microsoft"
+    out += [
+        case("mha-separate-bias", "spatial", "MultiHeadAttention",
+             ["q", "k", "v", "b"], {"q": qs, "k": ks, "v": vs}, {"b": bias},
+             attrs=[A("num_heads", h)], domain=ms, bf16=True),
+        case("mha-separate-attention-bias", "spatial", "MultiHeadAttention",
+             ["q", "k", "v", "", "", "ab"], {"q": qs, "k": ks, "v": vs},
+             {"ab": _normal(718, (1, h, s, 7))},
+             attrs=[A("num_heads", h), F("scale", 0.1)], domain=ms),
+        case("mha-packed-qkv", "spatial", "MultiHeadAttention", ["q"],
+             {"q": packed_qkv}, attrs=[A("num_heads", h)], domain=ms),
+        case("mha-packed-kv", "spatial", "MultiHeadAttention", ["q", "k"],
+             {"q": qs, "k": packed_kv}, attrs=[A("num_heads", h)], domain=ms),
+        case("mha-key-padding-mask", "spatial", "MultiHeadAttention",
+             ["q", "k", "v", "", "kpm"], {"q": qs, "k": ks, "v": vs},
+             {"kpm": np.ones((b, 7), np.int32)}, attrs=[A("num_heads", h)],
+             domain=ms, refused="preflight"),
+        case("mha-without-num-heads", "spatial", "MultiHeadAttention",
+             ["q", "k", "v"], {"q": qs, "k": ks, "v": vs}, domain=ms,
+             refused="preflight"),
+        case("mha-past-kv", "spatial", "MultiHeadAttention",
+             ["q", "k", "v", "", "", "", "pk", "pv"],
+             {"q": qs, "k": ks, "v": vs, "pk": k, "pv": v},
+             attrs=[A("num_heads", h)], domain=ms, refused="preflight"),
+        case("mha-packed-qkv-with-bias", "spatial", "MultiHeadAttention",
+             ["q", "", "", "b"], {"q": packed_qkv}, {"b": bias},
+             attrs=[A("num_heads", h)], domain=ms, refused="run"),
+        case("mha-packed-query-rank", "spatial", "MultiHeadAttention", ["q"],
+             {"q": qs}, attrs=[A("num_heads", h)], domain=ms, refused="run"),
+    ]
+    a3 = _normal(719, (2, 3, 6))
+    out += [
+        case("fusedmatmul", "spatial", "FusedMatMul", ["a", "b"],
+             {"a": a3}, {"b": _normal(720, (6, 4))}, domain=ms, bf16=True),
+        case("fusedmatmul-transb-alpha", "spatial", "FusedMatMul",
+             ["a", "b"], {"a": a3}, {"b": _normal(721, (4, 6))},
+             attrs=[A("transB", 1), F("alpha", 0.5)], domain=ms, bf16=True),
+        case("fusedmatmul-transa-batched", "spatial", "FusedMatMul",
+             ["a", "b"], {"a": a3, "b": _normal(722, (2, 3, 5))},
+             attrs=[A("transA", 1)], domain=ms),
+        case("fusedmatmul-host", "spatial", "FusedMatMul", ["a", "b"],
+             inits={"a": a3, "b": _normal(723, (6, 2))}, domain=ms),
+        case("fusedmatmul-trans-batch", "spatial", "FusedMatMul",
+             ["a", "b"], {"a": a3, "b": a3}, attrs=[A("transBatchA", 1)],
+             domain=ms, refused="preflight"),
+    ]
+    g = _normal(724, (2, 3, 8))
+    gb = _normal(725, (8,), 0.5)
+    out += [
+        case("fastgelu", "transcendental", "FastGelu", ["x"], {"x": g},
+             domain=ms, bf16=True),
+        case("fastgelu-bias", "transcendental", "FastGelu", ["x", "b"],
+             {"x": g}, {"b": gb}, domain=ms, bf16=True),
+        case("fastgelu-host", "transcendental", "FastGelu", ["c"],
+             inits={"c": g}, domain=ms),
+        case("biasgelu", "transcendental", "BiasGelu", ["x", "b"], {"x": g},
+             {"b": gb}, domain=ms, bf16=True),
+        case("biasgelu-host", "transcendental", "BiasGelu", ["c", "b"],
+             inits={"c": g, "b": gb}, domain=ms),
+        case("quickgelu", "transcendental", "QuickGelu", ["x"], {"x": g},
+             domain=ms, bf16=True),
+        case("quickgelu-alpha-host", "transcendental", "QuickGelu", ["c"],
+             inits={"c": g}, attrs=[F("alpha", 1.5)], domain=ms),
+    ]
+    skip = _normal(726, (2, 3, 8))
+    gamma = _uniform(727, (8,), 0.5, 1.5)
+    beta = _normal(728, (8,), 0.1)
+    out += [
+        case("skiplayernorm", "spatial", "SkipLayerNormalization",
+             ["x", "s", "g", "b", "bias"], {"x": g, "s": skip},
+             {"g": gamma, "b": beta, "bias": gb}, domain=ms, bf16=True),
+        case("skiplayernorm-no-beta", "spatial", "SkipLayerNormalization",
+             ["x", "s", "g"], {"x": g, "s": skip}, {"g": gamma},
+             attrs=[F("epsilon", 1e-5)], domain=ms),
+        case("skiplayernorm-sum-output", "spatial",
+             "SkipLayerNormalization", ["x", "s", "g", "b", "bias"],
+             {"x": g, "s": skip}, {"g": gamma, "b": beta, "bias": gb},
+             outs=["y0", "", "", "y3"], domain=ms),
+        case("skiplayernorm-host", "spatial", "SkipLayerNormalization",
+             ["x", "s", "g"], inits={"x": g, "s": skip, "g": gamma},
+             domain=ms),
+        case("skiplayernorm-mean-consumed", "spatial",
+             "SkipLayerNormalization", ["x", "s", "g"], {"x": g, "s": skip},
+             {"g": gamma}, outs=2, domain=ms, refused="run"),
+        case("skipsimplifiedlayernorm", "spatial",
+             "SkipSimplifiedLayerNormalization", ["x", "s", "g", "bias"],
+             {"x": g, "s": skip}, {"g": gamma, "bias": gb}, domain=ms,
+             bf16=True),
+        case("skipsimplifiedlayernorm-no-bias", "spatial",
+             "SkipSimplifiedLayerNormalization", ["x", "s", "g"],
+             {"x": g, "s": skip}, {"g": gamma}, outs=["y0", "", "", "y3"],
+             domain=ms),
+    ]
+    return out
+
+
+# -- 8. control flow -------------------------------------------------------------
+
+def _vi(name, shape, et=1):
+    return E.value_info(name, shape, elem_type=et)
+
+
+def _body(nodes, inputs, outputs, inits=()):
+    return E.graph(nodes, inputs=inputs, outputs=outputs,
+                   initializers=[tensor(n, a) for n, a in inits])
+
+
+def _loop_body(nodes, carried, scans=(), inits=()):
+    """A Loop body over (iteration ``it``, condition ``cond_in``, carried
+    names): outputs the condition ``cond_out``, the carried ``<name>_out``
+    and the scan outputs."""
+    return _body(
+        nodes,
+        [_vi("it", [], 7), _vi("cond_in", [], 9)]
+        + [_vi(c, ["n"]) for c in carried],
+        [_vi("cond_out", [], 9)] + [_vi(f"{c}_out", ["n"]) for c in carried]
+        + [_vi(s_, ["n"]) for s_ in scans], inits)
+
+
+def _if_case(cid, cond, then_nodes, else_nodes, feeds=None, inits=None,
+             then_inits=(), family="exact"):
+    then_g = _body(then_nodes, [], [_vi("t", ["n"])], then_inits)
+    else_g = _body(else_nodes, [], [_vi("e", ["n"])])
+    return case(cid, family, "If", [cond], feeds, inits,
+                attrs=[E.attr_graph("then_branch", then_g),
+                       E.attr_graph("else_branch", else_g)])
+
+
+def control_cases() -> list[Case]:
+    """If, Loop and Scan (``lowering.py:2373-2540``): static conditions
+    and trip counts, bodies unrolled, outer-scope closure and shadowing,
+    the lift of large body initializers; data-dependent control flow and
+    the unroll cap are refused. Bodies of elementwise ops are held
+    exactly; the branch with a matrix product within ``spatial``."""
+    x = _normal(801, (2, 3))
+    big = _normal(802, (128, 256), 0.1)  # 128 KiB: lifted into the params
+    true, false = np.array(True), np.array(False)
+    ident = [E.node("Identity", ["cond_in"], ["cond_out"])]
+    out = [
+        _if_case("if-then", "c", [E.node("Mul", ["x", "two"], ["t"])],
+                 [E.node("Neg", ["x"], ["e"])], {"x": x},
+                 {"c": true, "two": np.full(3, 2.0, np.float32)}),
+        _if_case("if-else", "c", [E.node("Mul", ["x", "x"], ["t"])],
+                 [E.node("Neg", ["x"], ["e"])], {"x": x}, {"c": false}),
+        _if_case("if-shadowing", "c", [E.node("Mul", ["x", "k"], ["t"])],
+                 [E.node("Identity", ["x"], ["e"])], {"x": x},
+                 {"c": true, "k": np.full(3, 2.0, np.float32)},
+                 then_inits=[("k", np.full(3, 10.0, np.float32))]),
+        _if_case("if-lifted-branch-weight", "c",
+                 [E.node("MatMul", ["x", "w_big"], ["t"])],
+                 [E.node("Slice", ["x", "z", "o"], ["e"])],
+                 {"x": _normal(803, (2, 128))},
+                 {"c": true, "z": _i64([0]), "o": _i64([1])},
+                 then_inits=[("w_big", big)], family="spatial"),
+    ]
+    # A data-dependent condition: a Greater over the graph input.
+    then_g = _body([E.node("Identity", ["x"], ["t"])], [], [_vi("t", ["n"])])
+    else_g = _body([E.node("Neg", ["x"], ["e"])], [], [_vi("e", ["n"])])
+    mb = E.model(
+        [E.node("ReduceMax", ["x"], ["mx"], attrs=[A("keepdims", 0)]),
+         E.node("Greater", ["mx", "zero"], ["c"]),
+         E.node("If", ["c"], ["y0"], name="if_0",
+                attrs=[E.attr_graph("then_branch", then_g),
+                       E.attr_graph("else_branch", else_g)])],
+        inputs=[_vi("x", list(x.shape))], outputs=[_vi("y0", ["n"])],
+        initializers=[tensor("zero", np.float32(0))], opset=17)
+    out.append(Case("if-data-dependent", "exact", mb, (x,), refused="run"))
+    out.append(case("if-without-branches", "exact", "If", ["c"], {"x": x},
+                    {"c": true}, refused="preflight"))
+
+    acc_body = _loop_body(
+        ident + [E.node("Add", ["v", "x"], ["v_out"]),
+                 E.node("Identity", ["v_out"], ["trace"])], ["v"], ["trace"])
+    table = _normal(804, (6, 3))
+    slice_body = _loop_body(
+        ident + [E.node("Gather", ["table", "it"], ["row"]),
+                 E.node("Add", ["it", "one"], ["it1"]),
+                 E.node("Slice", ["table", "it", "it1"], ["rows"]),
+                 E.node("Mul", ["v", "row"], ["v_out"]),
+                 E.node("Add", ["rows", "v_out"], ["trace"])],
+        ["v"], ["trace"])
+    while_body = _loop_body(
+        [E.node("Add", ["v", "x"], ["v_out"]),
+         E.node("Add", ["it", "one"], ["it1"]),
+         E.node("Less", ["it1", "three"], ["cond_out"])], ["v"])
+    host_body = _loop_body(
+        ident + [E.node("Mul", ["v", "two"], ["v_out"]),
+                 E.node("Cast", ["it"], ["trace"], attrs=[A("to", 1)])],
+        ["v"], ["trace"])
+    consts = {"table": table, "one": _i64(1), "three": _i64(3),
+              "two": np.float32(2)}
+    out += [
+        case("loop-scan-output", "exact", "Loop", ["m", "", "v0"],
+             {"x": np.array([1.0, 2.0], np.float32)},
+             {"m": _i64(3), "v0": np.array([0.0, 10.0], np.float32)},
+             attrs=[E.attr_graph("body", acc_body)], outs=2),
+        case("loop-body-slices-by-iteration", "exact", "Loop",
+             ["m", "", "v0"], {"v0": x[0]}, {"m": _i64(4), **consts},
+             attrs=[E.attr_graph("body", slice_body)], outs=2),
+        case("loop-while-condition", "exact", "Loop", ["", "c", "v0"],
+             {"x": x[0]}, {"c": true, "v0": np.zeros(3, np.float32),
+                           **consts},
+             attrs=[E.attr_graph("body", while_body)]),
+        case("loop-trip-and-condition", "exact", "Loop", ["m", "c", "v0"],
+             {"x": x[0]}, {"m": _i64(7), "c": true,
+                           "v0": np.zeros(3, np.float32), **consts},
+             attrs=[E.attr_graph("body", while_body)]),
+        case("loop-false-condition", "exact", "Loop", ["m", "c", "v0"],
+             {"x": x[0]}, {"m": _i64(5), "c": false, "v0": x[1], **consts},
+             attrs=[E.attr_graph("body", while_body)]),
+        case("loop-host", "exact", "Loop", ["m", "", "v0"],
+             inits={"m": _i64(3), "v0": np.ones(2, np.float32), **consts},
+             attrs=[E.attr_graph("body", host_body)], outs=2),
+        case("loop-data-dependent-trip-count", "exact", "Loop",
+             ["m", "", "v0"], {"m": _i64(2), "x": x[0]},
+             {"v0": np.zeros(3, np.float32)},
+             attrs=[E.attr_graph("body", acc_body)], outs=2, refused="run"),
+        case("loop-data-dependent-condition", "exact", "Loop",
+             ["", "c", "v0"], {"c": true, "x": x[0]},
+             {"v0": np.zeros(3, np.float32), **consts},
+             attrs=[E.attr_graph("body", while_body)], refused="run"),
+        case("loop-unroll-cap", "exact", "Loop", ["m", "", "v0"], {"x": x[0]},
+             {"m": _i64(4097), "v0": np.zeros(3, np.float32)},
+             attrs=[E.attr_graph("body", acc_body)], outs=2, refused="run"),
+        case("loop-zero-trips-with-scan", "exact", "Loop", ["m", "", "v0"],
+             {"x": x[0]}, {"m": _i64(0), "v0": np.zeros(3, np.float32)},
+             attrs=[E.attr_graph("body", acc_body)], outs=2, refused="run"),
+        case("loop-without-body", "exact", "Loop", ["m", "", "v0"],
+             {"v0": x[0]}, {"m": _i64(2)}, refused="preflight"),
+        case("loop-without-trip-or-condition", "exact", "Loop",
+             ["", "", "v0"], {"x": x[0]}, {"v0": np.zeros(3, np.float32)},
+             attrs=[E.attr_graph("body", acc_body)], refused="preflight"),
+    ]
+    # The loop-carried condition computed on the device.
+    dep_body = _loop_body(
+        [E.node("Add", ["v", "x"], ["v_out"]),
+         E.node("ReduceSum", ["v_out"], ["s"], attrs=[A("keepdims", 0)]),
+         E.node("Less", ["s", "lim"], ["cond_out"])], ["v"])
+    out.append(case("loop-data-dependent-carried-condition", "exact", "Loop",
+                    ["m", "", "v0"], {"x": x[0]},
+                    {"m": _i64(3), "v0": np.zeros(3, np.float32),
+                     "lim": np.float32(100)},
+                    attrs=[E.attr_graph("body", dep_body)], refused="run"))
+    # A while-style loop whose condition never turns false.
+    forever = _loop_body(ident + [E.node("Identity", ["v"], ["v_out"])],
+                         ["v"])
+    out.append(case("loop-while-unroll-cap", "exact", "Loop",
+                    ["", "c", "v0"], {"v0": x[0]}, {"c": true},
+                    attrs=[E.attr_graph("body", forever)], refused="run"))
+
+    cum = _body([E.node("Add", ["s", "xt"], ["s_out"]),
+                 E.node("Identity", ["s_out"], ["y_t"])],
+                [_vi("s", ["n"]), _vi("xt", ["n"])],
+                [_vi("s_out", ["n"]), _vi("y_t", ["n"])])
+    rev = _body([E.node("Identity", ["s"], ["s_out"]),
+                 E.node("Identity", ["xt"], ["y_t"])],
+                [_vi("s", ["n"]), _vi("xt", ["n"])],
+                [_vi("s_out", ["n"]), _vi("y_t", ["n"])])
+    two_in = _body([E.node("Mul", ["at", "bt"], ["p"]),
+                    E.node("Add", ["s", "p"], ["s_out"]),
+                    E.node("Identity", ["p"], ["y_t"])],
+                   [_vi("s", ["n"]), _vi("at", ["n"]), _vi("bt", ["n"])],
+                   [_vi("s_out", ["n"]), _vi("y_t", ["n"])])
+    xs = _normal(805, (4, 3))
+    scan = [E.attr_int("num_scan_inputs", 1)]
+    out += [
+        case("scan-cumulative-sum", "exact", "Scan", ["s0", "xs"],
+             {"xs": xs}, {"s0": np.zeros(3, np.float32)},
+             attrs=[E.attr_graph("body", cum)] + scan, outs=2, opset=11),
+        case("scan-reverse", "exact", "Scan", ["s0", "xs"],
+             {"xs": xs}, {"s0": np.zeros(3, np.float32)},
+             attrs=[E.attr_graph("body", rev)] + scan
+             + [I("scan_input_directions", [1])], outs=2, opset=11),
+        case("scan-axes-and-output-direction", "exact", "Scan",
+             ["s0", "a", "b"], {"a": xs.T.copy(), "s0": np.zeros(3,
+                                                                np.float32)},
+             {"b": _normal(806, (4, 3))},
+             attrs=[E.attr_graph("body", two_in),
+                    E.attr_int("num_scan_inputs", 2),
+                    I("scan_input_axes", [1, 0]),
+                    I("scan_output_axes", [1]),
+                    I("scan_output_directions", [1])], outs=2, opset=11),
+        case("scan-host", "exact", "Scan", ["s0", "xs"],
+             inits={"xs": xs, "s0": np.zeros(3, np.float32)},
+             attrs=[E.attr_graph("body", cum)] + scan, outs=2, opset=11),
+        case("scan-opset8", "exact", "Scan", ["", "s0"],
+             {"s0": np.zeros((1, 3), np.float32)},
+             attrs=[E.attr_graph("body", rev)] + scan, opset=8,
+             refused="preflight"),
+        case("scan-without-attributes", "exact", "Scan", ["s0", "xs"],
+             {"xs": xs}, {"s0": np.zeros(3, np.float32)}, opset=11,
+             refused="preflight"),
+        case("scan-unroll-cap", "exact", "Scan", ["s0", "xs"],
+             {"xs": np.zeros((4097, 1), np.float32)},
+             {"s0": np.zeros(1, np.float32)},
+             attrs=[E.attr_graph("body", cum)] + scan, outs=2, opset=11,
+             refused="run"),
+        case("scan-too-few-inputs", "exact", "Scan", ["xs"], {"xs": xs},
+             attrs=[E.attr_graph("body", cum),
+                    E.attr_int("num_scan_inputs", 2)], opset=11,
+             refused="run"),
+    ]
+    return out
+
+
+# -- 9. recurrent layers and the Lp normalizations --------------------------------
+
+def recurrent_cases() -> list[Case]:
+    """RNN, GRU and LSTM (``lowering.py:2551-2720``, unrolled step by
+    step) and the normalization extras (``:2723-2762``), within
+    ``spatial``; layout=1, clip, other activations and the other refused
+    inputs are typed refusals."""
+    seq, batch, inp, hid = 5, 2, 4, 3
+    x = _normal(901, (seq, batch, inp))
+    out = []
+    for op, gates in (("RNN", 1), ("GRU", 3), ("LSTM", 4)):
+        lo = op.lower()
+        for d, dirs in (("forward", 1), ("reverse", 1),
+                        ("bidirectional", 2)):
+            w = _normal(902, (dirs, gates * hid, inp), 0.5)
+            r = _normal(903, (dirs, gates * hid, hid), 0.5)
+            b = _normal(904, (dirs, 2 * gates * hid), 0.3)
+            h0 = _normal(905, (dirs, batch, hid), 0.5)
+            ins = ["x", "w", "r", "b", "", "h0"]
+            inits = {"w": w, "r": r, "b": b, "h0": h0}
+            if op == "LSTM":
+                ins.append("c0")
+                inits["c0"] = _normal(906, (dirs, batch, hid), 0.5)
+            attrs = [S("direction", d), A("hidden_size", hid)]
+            outs = 3 if op == "LSTM" else 2
+            out.append(case(f"{lo}-{d}", "spatial", op, ins, {"x": x}, inits,
+                            attrs=attrs, outs=outs, bf16=d == "forward"))
+            out.append(case(f"{lo}-{d}-no-bias-no-state", "spatial", op,
+                            ["x", "w", "r"], {"x": x}, {"w": w, "r": r},
+                            attrs=[S("direction", d)], outs=outs))
+        out.append(case(f"{lo}-host", "spatial", op, ["x", "w", "r"],
+                        inits={"x": x,
+                               "w": _normal(907, (1, gates * hid, inp)),
+                               "r": _normal(908, (1, gates * hid, hid))},
+                        outs=2))
+        w1 = _normal(909, (1, gates * hid, inp))
+        r1 = _normal(910, (1, gates * hid, hid))
+        base = {"w": w1, "r": r1}
+        for name, attrs in (
+                ("layout1", [A("layout", 1)]),
+                ("clip", [F("clip", 3.0)]),
+                ("direction", [S("direction", "sideways")])):
+            out.append(case(f"{lo}-{name}", "spatial", op, ["x", "w", "r"],
+                            {"x": x}, base, attrs=attrs, outs=2,
+                            refused="run"))
+        out.append(case(f"{lo}-sequence-lens", "spatial", op,
+                        ["x", "w", "r", "", "sl"], {"x": x},
+                        {**base, "sl": np.full(batch, seq, np.int32)},
+                        outs=2, refused="run"))
+    acts = {"RNN": ["Tanh"], "GRU": ["Sigmoid", "Tanh"],
+            "LSTM": ["Sigmoid", "Tanh", "Tanh"]}
+    for op, names in acts.items():
+        lo, gates = op.lower(), {"RNN": 1, "GRU": 3, "LSTM": 4}[op]
+        w2 = _normal(911, (2, gates * hid, inp))
+        r2 = _normal(912, (2, gates * hid, hid))
+        out.append(case(f"{lo}-explicit-default-activations", "spatial", op,
+                        ["x", "w", "r"], {"x": x}, {"w": w2, "r": r2},
+                        attrs=[S("direction", "bidirectional"),
+                               _strs("activations", names + names)], outs=2))
+        out.append(case(f"{lo}-other-activations", "spatial", op,
+                        ["x", "w", "r"], {"x": x},
+                        {"w": w2[:1], "r": r2[:1]},
+                        attrs=[_strs("activations",
+                                     ["Relu"] + names[1:])], outs=2,
+                        refused="run"))
+    out.append(case("gru-linear-before-reset", "spatial", "GRU",
+                    ["x", "w", "r", "b"], {"x": x},
+                    {"w": _normal(913, (1, 3 * hid, inp)),
+                     "r": _normal(914, (1, 3 * hid, hid)),
+                     "b": _normal(915, (1, 6 * hid))},
+                    attrs=[A("linear_before_reset", 1)], outs=2, bf16=True))
+    w4, r4 = _normal(916, (1, 4 * hid, inp)), _normal(917, (1, 4 * hid, hid))
+    out += [
+        case("lstm-peepholes", "spatial", "LSTM",
+             ["x", "w", "r", "", "", "", "", "p"], {"x": x},
+             {"w": w4, "r": r4, "p": np.zeros((1, 3 * hid), np.float32)},
+             outs=2, refused="run"),
+        case("lstm-input-forget", "spatial", "LSTM", ["x", "w", "r"],
+             {"x": x}, {"w": w4, "r": r4}, attrs=[A("input_forget", 1)],
+             outs=2, refused="run"),
+    ]
+    x4 = _normal(918, (2, 3, 4, 5))
+    out += [
+        case("meanvariancenormalization", "spatial",
+             "MeanVarianceNormalization", ["x"], {"x": x4}, bf16=True),
+        case("meanvariancenormalization-axes", "spatial",
+             "MeanVarianceNormalization", ["x"], {"x": x4},
+             attrs=[I("axes", [1, -1])]),
+        case("meanvariancenormalization-host", "spatial",
+             "MeanVarianceNormalization", ["c"], inits={"c": x4}),
+        case("lpnormalization-l2", "spatial", "LpNormalization", ["x"],
+             {"x": x4}, bf16=True),
+        case("lpnormalization-l1-axis1", "spatial", "LpNormalization", ["x"],
+             {"x": x4}, attrs=[A("p", 1), A("axis", 1)]),
+        case("lpnormalization-host", "spatial", "LpNormalization", ["c"],
+             inits={"c": x4}),
+        case("lpnormalization-p3", "spatial", "LpNormalization", ["x"],
+             {"x": x4}, attrs=[A("p", 3)], refused="run"),
+        case("globallppool-l2", "spatial", "GlobalLpPool", ["x"], {"x": x4},
+             bf16=True),
+        case("globallppool-l1", "spatial", "GlobalLpPool", ["x"], {"x": x4},
+             attrs=[A("p", 1)]),
+        case("globallppool-host", "spatial", "GlobalLpPool", ["c"],
+             inits={"c": x4}),
+        case("globallppool-p3", "spatial", "GlobalLpPool", ["x"], {"x": x4},
+             attrs=[A("p", 3)], refused="run"),
+        case("lppool-l2", "spatial", "LpPool", ["x"], {"x": x4},
+             attrs=[I("kernel_shape", [2, 2])], opset=18, bf16=True),
+        case("lppool-l1-strides-pads", "spatial", "LpPool", ["x"],
+             {"x": x4}, attrs=[A("p", 1), I("kernel_shape", [3, 2]),
+                               I("strides", [2, 2]),
+                               I("pads", [1, 0, 1, 1])], opset=18),
+        case("lppool-p3", "spatial", "LpPool", ["x"], {"x": x4},
+             attrs=[A("p", 3), I("kernel_shape", [2, 2])], opset=18,
+             refused="run"),
+    ]
+    return out
+
+
+def _strs(name: str, values) -> bytes:
+    """A STRINGS attribute (the port's encoder has none)."""
+    body = E._str(1, name)
+    for v in values:
+        b = v.encode()
+        body += E._field(9, 2, E._varint(len(b)) + b)
+    return body + E._int(20, 8)
+
+
+def late_cases() -> list[Case]:
+    """The families of the last 39 handlers."""
+    return (index_cases() + transformer_cases() + control_cases()
+            + recurrent_cases())
 
 
 def run_port(model: bytes, feeds, bf16: bool = False, device="cpu",
