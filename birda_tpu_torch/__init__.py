@@ -9,3 +9,22 @@ names. It runs on the CUDA card unless the caller asks for the CPU.
 """
 
 __version__ = "0.1.0"
+
+#: Lazy re-exports of the library API (birda_tpu_torch.analyze and friends)
+#: keep `import birda_tpu_torch` light: the CLI and tests import
+#: subpackages directly, and the API pulls in torch only when first used.
+_API_NAMES = ("analyze", "species", "clip", "AnalyzeResult",
+              "FileResult", "Detection", "SpeciesEntry")
+
+
+def __getattr__(name):
+    if name in _API_NAMES:
+        from . import api
+
+        return getattr(api, name)
+    raise AttributeError(
+        f"module 'birda_tpu_torch' has no attribute '{name}'")
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_API_NAMES))

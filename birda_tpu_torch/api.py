@@ -26,7 +26,7 @@ from typing import Optional, Sequence
 from .output.reporter import ProgressReporter
 from .output.types import Detection
 
-__all__ = ["analyze", "species", "AnalyzeResult", "FileResult",
+__all__ = ["analyze", "species", "clip", "AnalyzeResult", "FileResult",
            "Detection", "SpeciesEntry"]
 
 
@@ -333,3 +333,38 @@ def species(
         sci, common = split_species_label(label)
         out.append(SpeciesEntry(sci, common, float(score)))
     return out
+
+
+def clip(
+    files: Sequence[Path | str],
+    output: Path | str,
+    *,
+    audio_dir: Optional[Path | str] = None,
+    base_dir: Optional[Path | str] = None,
+    pre: Optional[float] = None,
+    post: Optional[float] = None,
+    min_confidence: float = 0.0,
+    species: Optional[str] = None,
+    start: Optional[float] = None,
+    end: Optional[float] = None,
+):
+    """Extract audio clips from detection CSVs (or directly from audio
+    files with ``start``/``end``) — the programmatic face of
+    ``birda clip``. Returns the :class:`~birda_tpu_torch.clipper.command.ClipSummary`
+    (total_clips, processed_files, per-clip entries, failures)."""
+    from .clipper.command import ClipArgs, execute
+    from .constants import clipper as clip_consts
+
+    args = ClipArgs(
+        files=[Path(f) for f in files],
+        output=Path(output),
+        audio=Path(audio_dir) if audio_dir else None,
+        base_dir=Path(base_dir) if base_dir else None,
+        pre=pre if pre is not None else clip_consts.DEFAULT_PRE_PADDING,
+        post=post if post is not None else clip_consts.DEFAULT_POST_PADDING,
+        confidence=min_confidence,
+        species=species,
+        start=start,
+        end=end,
+    )
+    return execute(args)

@@ -23,6 +23,11 @@
 // [64 t, 128 c] tile to shared memory transposed, bf16, and its threads
 // store runs along t, the tails of T and C masked. No atomics and no
 // cross-block pass: the result is deterministic.
+//
+// A wide hop (512 at K 2048, 1024 at K 1024) makes the span of 128 frames
+// larger than shared memory; the host then picks the most frames per block
+// that fit, 64 or fewer (stft_conv.conv1d_frames), the second warpgroup
+// only keeps the ring turning, and only the first one stages its tile.
 
 #include "strided_window_gemm.cuh"
 
@@ -32,18 +37,19 @@ using namespace swg;
 
 constexpr int STAGE_ELEMS = STAGE_BYTES / 2;
 constexpr int O_LD = 64 + 8;  // bf16 staging row [c][t], padded for banks
-constexpr size_t STAGING_BYTES = 2 * TILE_N * O_LD * 2;
+// One consumer warpgroup's staged tile.
+constexpr size_t STAGING_BYTES = TILE_N * O_LD * 2;
 
 // ODD: odd hop (A registers packed from two 2-byte loads).
 template <bool ODD>
 __global__ void __launch_bounds__(THREADS, 1)
 conv1d_stft_kernel(const void* __restrict__ x, int x_f32,
                    const __nv_bfloat16* __restrict__ wp,
-                   __nv_bfloat16* __restrict__ out, int S, int hop, int pad,
-                   int K, int T, int C, int n_ct, int n_kc) {
+                   __nv_bfloat16* __restrict__ out, int S, int hop, int row,
+                   int pad, int tf, int K, int T, int C, int n_ct, int n_kc) {
   extern __shared__ uint8_t smem_raw[];
   const int kp = n_kc * TILE_K;
-  const Smem sm(smem_raw, hop, pad, kp);
+  const Smem sm(smem_raw, hop, row, pad, kp, tf);
   init_barriers(sm);
 
   if (warpgroup() == PRODUCER_WG) {
@@ -64,18 +70,25 @@ conv1d_stft_kernel(const void* __restrict__ x, int x_f32,
     const int wg = tid >> 7;
     const int warp = (tid >> 5) & 3;
     const int lane = tid & 31;
-    const int t0 = blockIdx.x * TILE_T;
+    const int t0 = blockIdx.x * tf;
     const int b = blockIdx.y;
-    load_span(sm.span, x, x_f32 != 0, b, S, t0 * hop,
-              (TILE_T - 1) * hop + kp, hop, pad, tid);
+    load_span(sm.span, x, x_f32 != 0, b, S, t0 * hop, (tf - 1) * hop + kp,
+              hop, row, pad, tid);
     named_bar_sync(1, CONSUMER_THREADS);
 
-    FrameCursor<ODD> fc(sm.span, wg * 64 + warp * 16 + (lane >> 2), hop,
-                        pad, K);
+    RingPos pos;
+    if (wg * 64 >= tf) {  // no frames of its own (tf <= 64)
+      skip_stages(sm, pos, n_ct * n_kc);
+      return;
+    }
+    FrameCursor<ODD> fc(sm.span, wg * 64 + warp * 16 + (lane >> 2), tf - 1,
+                        hop, row, pad, K);
     __nv_bfloat16* stage =
         reinterpret_cast<__nv_bfloat16*>(sm.extra) + wg * TILE_N * O_LD;
     const int t_base = t0 + wg * 64;
-    RingPos pos;
+    // The block's frames end at t0 + tf: the tile's rows past it repeat
+    // the last frame and are not stored.
+    const int t_end = min(T, t0 + tf);
 
     for (int j = 0; j < n_ct; ++j) {
       float acc[64];
@@ -100,8 +113,8 @@ conv1d_stft_kernel(const void* __restrict__ x, int x_f32,
             *reinterpret_cast<const __nv_bfloat162*>(stage + cc * O_LD +
                                                      2 * lane);
         __nv_bfloat16* dst = out + ((size_t)b * C + gc) * T;
-        if (gt < T) dst[gt] = v.x;
-        if (gt + 1 < T) dst[gt + 1] = v.y;
+        if (gt < t_end) dst[gt] = v.x;
+        if (gt + 1 < t_end) dst[gt + 1] = v.y;
       }
       named_bar_sync(2 + wg, 128);
     }
@@ -110,18 +123,23 @@ conv1d_stft_kernel(const void* __restrict__ x, int x_f32,
 
 template <bool ODD>
 int launch(const void* x, int x_f32, const void* wp, void* out, int batch,
-           int S, int hop, int pad, int K, int T, int C, int n_ct, int n_kc,
-           cudaStream_t stream) {
-  const size_t smem = smem_bytes(hop, pad, n_kc * TILE_K, STAGING_BYTES);
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+           int S, int hop, int row, int pad, int tf, int K, int T, int C,
+           int n_ct, int n_kc, cudaStream_t stream) {
+  const int kp = n_kc * TILE_K;
+  const size_t smem = smem_bytes(hop, row, pad, kp, tf,
+                                 (tf > 64 ? 2 : 1) * STAGING_BYTES);
+  if (!span_args_ok(hop, row, pad, kp, tf) || smem > SMEM_LIMIT) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       conv1d_stft_kernel<ODD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + TILE_T - 1) / TILE_T, batch);
+  dim3 grid((T + tf - 1) / tf, batch);
   conv1d_stft_kernel<ODD><<<grid, THREADS, smem, stream>>>(
       x, x_f32, static_cast<const __nv_bfloat16*>(wp),
-      static_cast<__nv_bfloat16*>(out), S, hop, pad, K, T, C, n_ct, n_kc);
+      static_cast<__nv_bfloat16*>(out), S, hop, row, pad, tf, K, T, C, n_ct,
+      n_kc);
   return (int)cudaGetLastError();
 }
 
@@ -136,20 +154,20 @@ int birda_conv1d_stft_tile_k() { return TILE_K; }
 
 // x: [batch, S] float32 (x_f32 = 1) or bf16, contiguous; wp: [n_ct, n_kc,
 // TILE_N, TILE_K] bf16, each chunk a 128-B swizzled image; out: [batch, C,
-// T] bf16. pad: span row padding (0 for an odd hop). Returns
-// cudaGetLastError() after the launch (0 = launched).
+// T] bf16. row: the span's row length, min(hop, n_kc * TILE_K); pad: its
+// row padding (0 for an odd row); tf: frames per block, a power of two up
+// to 128.
+// Returns cudaGetLastError() after the launch (0 = launched).
 int birda_conv1d_stft(const void* x, int x_f32, const void* wp, void* out,
-                      int batch, int S, int hop, int pad, int K, int T, int C,
-                      int n_ct, int n_kc, void* stream) {
+                      int batch, int S, int hop, int row, int pad, int tf,
+                      int K, int T, int C, int n_ct, int n_kc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hop & 1) {
-    if (pad != 0) return (int)cudaErrorInvalidValue;
-    return launch<true>(x, x_f32, wp, out, batch, S, hop, 0, K, T, C, n_ct,
-                        n_kc, s);
+  if (row & 1) {
+    return launch<true>(x, x_f32, wp, out, batch, S, hop, row, pad, tf, K, T,
+                        C, n_ct, n_kc, s);
   }
-  if (pad & 1) return (int)cudaErrorInvalidValue;
-  return launch<false>(x, x_f32, wp, out, batch, S, hop, pad, K, T, C, n_ct,
-                       n_kc, s);
+  return launch<false>(x, x_f32, wp, out, batch, S, hop, row, pad, tf, K, T,
+                       C, n_ct, n_kc, s);
 }
 
 }  // extern "C"

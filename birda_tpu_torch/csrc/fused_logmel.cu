@@ -24,6 +24,12 @@
 // filterbank tile riding the same ring as the DFT chunks. The mel
 // accumulators stay in registers across all bin tiles; then log and store.
 // No atomics and no cross-block pass: the result is deterministic.
+//
+// The registers hold at most 256 mel columns. A wider front end (two
+// 160-mel banks) is cut into `passes` equal column ranges of at most 256,
+// one per blockIdx.z: each such block recomputes the DFT of its frames and
+// projects onto its own range. A wide hop takes fewer frames per block, as
+// in conv1d_stft.cu (the second warpgroup then keeps the ring turning).
 
 #include "strided_window_gemm.cuh"
 
@@ -35,20 +41,22 @@ constexpr int TILE_BINS = TILE_N / 2;  // cos and -sin rows of one N tile
 constexpr int FB_ROW_BYTES = TILE_BINS * 2;  // one mel column of a bin tile
 constexpr int STAGE_ELEMS = STAGE_BYTES / 2;
 
-// NQ: 32-wide mel column groups (the padded mel width is 32 * NQ);
-// ODD: odd hop (A registers packed from two 2-byte loads).
+// NQ: 32-wide mel column groups of one pass (its padded mel width is
+// 32 * NQ); ODD: odd span row (A registers packed from two 2-byte loads).
 template <int NQ, bool ODD>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_logmel_kernel(const void* __restrict__ x, int x_f32,
                     const __nv_bfloat16* __restrict__ wp,
                     const __nv_bfloat16* __restrict__ fbp,
-                    __nv_bfloat16* __restrict__ out, int S, int hop, int pad,
-                    int K, int T, int M, int n_bt, int n_kc, float eps) {
+                    __nv_bfloat16* __restrict__ out, int S, int hop, int row,
+                    int pad, int tf, int K, int T, int M, int mp_all,
+                    int n_bt, int n_kc, float eps) {
   constexpr int MP = 32 * NQ;
   constexpr int FB_STAGES = (MP + TILE_N - 1) / TILE_N;
   extern __shared__ uint8_t smem_raw[];
   const int kp = n_kc * TILE_K;
-  const Smem sm(smem_raw, hop, pad, kp);
+  const Smem sm(smem_raw, hop, row, pad, kp, tf);
+  const int col0 = blockIdx.z * MP;  // this pass's first mel column
   init_barriers(sm);
 
   if (warpgroup() == PRODUCER_WG) {
@@ -64,7 +72,7 @@ fused_logmel_kernel(const void* __restrict__ x, int x_f32,
         for (int f = 0; f < FB_STAGES; ++f) {
           const int rows = min(MP - f * TILE_N, TILE_N);
           produce(sm, pos,
-                  fbp + ((size_t)j * MP + f * TILE_N) * TILE_BINS,
+                  fbp + ((size_t)j * mp_all + col0 + f * TILE_N) * TILE_BINS,
                   rows * FB_ROW_BYTES);
         }
       }
@@ -75,15 +83,19 @@ fused_logmel_kernel(const void* __restrict__ x, int x_f32,
     const int wg = tid >> 7;
     const int warp = (tid >> 5) & 3;
     const int lane = tid & 31;
-    const int t0 = blockIdx.x * TILE_T;
+    const int t0 = blockIdx.x * tf;
     const int b = blockIdx.y;
-    load_span(sm.span, x, x_f32 != 0, b, S, t0 * hop,
-              (TILE_T - 1) * hop + kp, hop, pad, tid);
+    load_span(sm.span, x, x_f32 != 0, b, S, t0 * hop, (tf - 1) * hop + kp,
+              hop, row, pad, tid);
     named_bar_sync(1, CONSUMER_THREADS);
 
-    const int frame = wg * 64 + warp * 16 + (lane >> 2);
-    FrameCursor<ODD> fc(sm.span, frame, hop, pad, K);
     RingPos pos;
+    if (wg * 64 >= tf) {  // no frames of its own (tf <= 64)
+      skip_stages(sm, pos, n_bt * (n_kc + FB_STAGES));
+      return;
+    }
+    const int frame = wg * 64 + warp * 16 + (lane >> 2);
+    FrameCursor<ODD> fc(sm.span, frame, tf - 1, hop, row, pad, K);
     float mel[NQ][16];
 #pragma unroll
     for (int q = 0; q < NQ; ++q) {
@@ -141,18 +153,19 @@ fused_logmel_kernel(const void* __restrict__ x, int x_f32,
     }
 
     // log(mel + eps) as bf16: register 4 j8 + 2 h + e of group q is frame
-    // row lane/4 + 8 h, mel column 32 q + 8 j8 + 2 (lane % 4) + e. Pairs
-    // of columns go out as one 4-byte store where M is even.
+    // row lane/4 + 8 h, mel column col0 + 32 q + 8 j8 + 2 (lane % 4) + e.
+    // Pairs of columns go out as one 4-byte store where M is even. Rows
+    // past the block's tf frames repeat its last frame and are not stored.
 #pragma unroll
     for (int q = 0; q < NQ; ++q) {
 #pragma unroll
       for (int i = 0; i < 16; ++i) mel[q][i] = logf(mel[q][i] + eps);
     }
-    const int c0 = 2 * (lane & 3);
+    const int c0 = col0 + 2 * (lane & 3);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int t = t0 + frame + 8 * h;
-      if (t < T) {
+      if (t < T && frame + 8 * h < tf) {
         __nv_bfloat16* dst = out + ((size_t)b * T + t) * M + c0;
 #pragma unroll
         for (int q = 0; q < NQ; ++q) {
@@ -177,35 +190,39 @@ fused_logmel_kernel(const void* __restrict__ x, int x_f32,
 
 template <int NQ, bool ODD>
 int launch(const void* x, int x_f32, const void* wp, const void* fbp,
-           void* out, int batch, int S, int hop, int pad, int K, int T, int M,
-           int n_bt, int n_kc, float eps, cudaStream_t stream) {
-  const size_t smem = smem_bytes(hop, pad, n_kc * TILE_K, 0);
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+           void* out, int batch, int S, int hop, int row, int pad, int tf,
+           int K, int T, int M, int passes, int n_bt, int n_kc, float eps,
+           cudaStream_t stream) {
+  const int kp = n_kc * TILE_K;
+  const size_t smem = smem_bytes(hop, row, pad, kp, tf, 0);
+  if (!span_args_ok(hop, row, pad, kp, tf) || smem > SMEM_LIMIT ||
+      passes < 1 || (passes - 1) * 32 * NQ >= M) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       fused_logmel_kernel<NQ, ODD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + TILE_T - 1) / TILE_T, batch);
+  dim3 grid((T + tf - 1) / tf, batch, passes);
   fused_logmel_kernel<NQ, ODD><<<grid, THREADS, smem, stream>>>(
       x, x_f32, static_cast<const __nv_bfloat16*>(wp),
       static_cast<const __nv_bfloat16*>(fbp),
-      static_cast<__nv_bfloat16*>(out), S, hop, pad, K, T, M, n_bt, n_kc,
-      eps);
+      static_cast<__nv_bfloat16*>(out), S, hop, row, pad, tf, K, T, M,
+      passes * 32 * NQ, n_bt, n_kc, eps);
   return (int)cudaGetLastError();
 }
 
 template <int NQ>
-int launch_hop(const void* x, int x_f32, const void* wp, const void* fbp,
-               void* out, int batch, int S, int hop, int pad, int K, int T,
-               int M, int n_bt, int n_kc, float eps, cudaStream_t stream) {
-  if (hop & 1) {
-    if (pad != 0) return (int)cudaErrorInvalidValue;
-    return launch<NQ, true>(x, x_f32, wp, fbp, out, batch, S, hop, 0, K, T,
-                            M, n_bt, n_kc, eps, stream);
+int launch_row(const void* x, int x_f32, const void* wp, const void* fbp,
+               void* out, int batch, int S, int hop, int row, int pad, int tf,
+               int K, int T, int M, int passes, int n_bt, int n_kc, float eps,
+               cudaStream_t stream) {
+  if (row & 1) {
+    return launch<NQ, true>(x, x_f32, wp, fbp, out, batch, S, hop, row, pad,
+                            tf, K, T, M, passes, n_bt, n_kc, eps, stream);
   }
-  if (pad & 1) return (int)cudaErrorInvalidValue;
-  return launch<NQ, false>(x, x_f32, wp, fbp, out, batch, S, hop, pad, K, T,
-                           M, n_bt, n_kc, eps, stream);
+  return launch<NQ, false>(x, x_f32, wp, fbp, out, batch, S, hop, row, pad,
+                           tf, K, T, M, passes, n_bt, n_kc, eps, stream);
 }
 
 }  // namespace
@@ -219,18 +236,22 @@ int birda_fused_logmel_tile_k() { return TILE_K; }
 
 // x: [batch, S] float32 (x_f32 = 1) or bf16, contiguous; wp: [n_bt, n_kc,
 // 2 * TILE_BINS, TILE_K] bf16, each [cos 64 | -sin 64] x 64 chunk a 128-B
-// swizzled image; fbp: [n_bt, mp, TILE_BINS] bf16, the same swizzle; out:
-// [batch, T, M] bf16. pad: span row padding (0 for an odd hop). Returns
-// cudaGetLastError() after the launch (0 = launched).
+// swizzled image; fbp: [n_bt, passes * mp, TILE_BINS] bf16, the same
+// swizzle; out: [batch, T, M] bf16. mp: the padded mel width of one pass
+// (a multiple of 32, at most 256); row: the span's row length, min(hop,
+// n_kc * TILE_K); pad: its row padding (0 for an odd row); tf: frames per
+// block, a power of two up to 128. Returns cudaGetLastError() after the
+// launch (0 = launched).
 int birda_fused_logmel(const void* x, int x_f32, const void* wp,
                        const void* fbp, void* out, int batch, int S, int hop,
-                       int pad, int K, int T, int M, int mp, int n_bt,
-                       int n_kc, float eps, void* stream) {
+                       int row, int pad, int tf, int K, int T, int M, int mp,
+                       int passes, int n_bt, int n_kc, float eps,
+                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define BIRDA_LOGMEL_CASE(NQ)                                              \
-  case 32 * NQ:                                                            \
-    return launch_hop<NQ>(x, x_f32, wp, fbp, out, batch, S, hop, pad, K, T, \
-                          M, n_bt, n_kc, eps, s);
+#define BIRDA_LOGMEL_CASE(NQ)                                               \
+  case 32 * NQ:                                                             \
+    return launch_row<NQ>(x, x_f32, wp, fbp, out, batch, S, hop, row, pad,  \
+                          tf, K, T, M, passes, n_bt, n_kc, eps, s);
   switch (mp) {
     BIRDA_LOGMEL_CASE(1)
     BIRDA_LOGMEL_CASE(2)

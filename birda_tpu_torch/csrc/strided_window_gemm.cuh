@@ -2,23 +2,27 @@
 // fused_logmel.cu and conv1d_stft.cu.
 //
 // The product is out[t, n] = sum_k x[t * hop + k] * w[n, k]: M = frames,
-// N = output columns, K = the window. A block owns TILE_T = 128 frames of
-// one signal row and walks every N tile of TILE_N = 128 columns, K in
-// TILE_K = 64 chunks, with the kernel's own epilogue after each N tile.
+// N = output columns, K = the window. A block owns `tf` frames of one
+// signal row (TILE_T = 128, or a smaller power of two where the span of
+// 128 frames does not fit shared memory) and walks every N tile of TILE_N = 128
+// columns, K in TILE_K = 64 chunks, with the kernel's own epilogue after
+// each N tile.
 //
-//  - The signal span of the block's frames, (TILE_T - 1) * hop + Kp
-//    samples, is loaded once into shared memory (16-B vector loads of the
-//    signal in its own dtype, float32 or bf16, rounded to bf16 to nearest
-//    even, zeros at and past S). Frame t starts at t * hop, which is not
-//    16-B aligned at hop 278, so frames cannot be a shared-memory wgmma
-//    operand: they are the wgmma A operand from registers. For an even hop
+//  - The signal span of the block's frames, (tf - 1) * hop + Kp samples,
+//    is loaded once into shared memory (16-B vector loads of the signal in
+//    its own dtype, float32 or bf16, rounded to bf16 to nearest even, zeros
+//    at and past S). Frame t starts at t * hop, which is not 16-B aligned
+//    at hop 278, so frames cannot be a shared-memory wgmma operand: they
+//    are the wgmma A operand from registers. Where a row's start is even
 //    each A register (two consecutive samples of one frame) is one 32-bit
-//    shared load; an odd hop packs two 2-byte loads.
-//  - The span is stored in rows of `hop` samples, each padded by `pad`
-//    samples (span_pad() on the host), so that the eight frames a warp
-//    reads at one window position fall on distinct banks (row stride
-//    (hop + pad) / 2 = 4 mod 8 words). Sample p of the span sits at
-//    p + pad * (p / hop).
+//    shared load; an odd row length packs two 2-byte loads.
+//  - The span is stored in rows, one per hop: `row` = min(hop, Kp) samples
+//    of each (a hop longer than the window leaves samples no frame reads,
+//    which are not stored), each padded by `pad` samples (span_pad() on
+//    the host), so that the eight frames a warp reads at one window
+//    position fall on distinct banks (row stride (row + pad) / 2 = 4 mod 8
+//    words). Sample p of the span sits at (p / hop) * (row + pad) +
+//    p % hop.
 //  - Weights are the wgmma B operand. The host lays each [TILE_N, TILE_K]
 //    chunk out as the 16 KB 128-B-swizzled K-major image the wgmma
 //    descriptor reads (prepare_*_weights in ops/stft_conv.py), so one 1-D
@@ -27,9 +31,12 @@
 //  - Two consumer warpgroups each take 64 of the 128 frames and issue
 //    wgmma.mma_async m64n128k16 (bf16 operands, fp32 accumulators in
 //    registers); setmaxnreg moves registers from the producer to them.
+//    Below 128 frames the second warpgroup only waits on and releases the
+//    ring's stages, and the first one's rows past `tf` repeat its last
+//    frame and are not stored.
 //
 // Launch: THREADS = 384 (two consumer warpgroups, then the producer),
-// grid (ceil(T / TILE_T), B), dynamic shared memory from smem layout below.
+// grid (ceil(T / tf), B), dynamic shared memory from smem layout below.
 
 #pragma once
 
@@ -58,23 +65,34 @@ constexpr int CONSUMER_REGS = 240;
 // Shared memory a block may use on sm_90 (232,448 bytes).
 constexpr size_t SMEM_LIMIT = 232448;
 
-// Samples of the padded span: rows of hop (+pad) samples covering
-// (TILE_T - 1) * hop + kp samples.
-__host__ __device__ inline int span_rows(int hop, int kp) {
-  return TILE_T - 1 + (kp + hop - 1) / hop;
+// The padded span: rows of `row` (+pad) samples, one per hop, covering
+// (tf - 1) * hop + kp samples.
+__host__ __device__ inline int span_rows(int hop, int kp, int tf) {
+  return tf - 1 + (kp + hop - 1) / hop;
 }
-__host__ __device__ inline size_t span_bytes(int hop, int pad, int kp) {
-  const size_t n = (size_t)span_rows(hop, kp) * (hop + pad);
+__host__ __device__ inline size_t span_bytes(int hop, int row, int pad,
+                                             int kp, int tf) {
+  const size_t n = (size_t)span_rows(hop, kp, tf) * (row + pad);
   return (n * 2 + 15) / 16 * 16;
 }
 
 // Dynamic shared memory: 1 KB of alignment slack, the ring (1024-B aligned,
 // as the 128-B swizzle needs), 2 * STAGES mbarriers, the span, then
 // `extra` bytes for the kernel's epilogue.
-__host__ __device__ inline size_t smem_bytes(int hop, int pad, int kp,
-                                             size_t extra) {
+__host__ __device__ inline size_t smem_bytes(int hop, int row, int pad,
+                                             int kp, int tf, size_t extra) {
   return 1024 + (size_t)STAGES * STAGE_BYTES + 2 * STAGES * 8 +
-         span_bytes(hop, pad, kp) + extra;
+         span_bytes(hop, row, pad, kp, tf) + extra;
+}
+
+// The geometry arguments a launch checks: tf a power of two up to TILE_T,
+// row the span's row length, a pad that keeps even rows 4-B aligned.
+__host__ inline bool span_args_ok(int hop, int row, int pad, int kp,
+                                  int tf) {
+  const bool tf_ok = tf >= 1 && tf <= TILE_T && (tf & (tf - 1)) == 0;
+  const int want_row = hop < kp ? hop : kp;
+  return tf_ok && row == want_row && pad >= 0 && (pad & 1) == 0 &&
+         ((row & 1) == 0 || pad == 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -255,14 +273,15 @@ struct Smem {
   __nv_bfloat16* span;  // the padded signal span
   uint8_t* extra;       // epilogue scratch
 
-  __device__ Smem(uint8_t* raw, int hop, int pad, int kp) {
+  __device__ Smem(uint8_t* raw, int hop, int row, int pad, int kp, int tf) {
     uint8_t* base = reinterpret_cast<uint8_t*>(
         (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
     ring = base;
     full = reinterpret_cast<uint64_t*>(base + STAGES * STAGE_BYTES);
     empty = full + STAGES;
     span = reinterpret_cast<__nv_bfloat16*>(empty + STAGES);
-    extra = reinterpret_cast<uint8_t*>(span) + span_bytes(hop, pad, kp);
+    extra = reinterpret_cast<uint8_t*>(span) +
+            span_bytes(hop, row, pad, kp, tf);
   }
 };
 
@@ -330,14 +349,15 @@ __device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 v) {
   return v;
 }
 
-// Copies samples [g0, g0 + span_len) of signal row `row` (length S) into
-// the padded span, bf16, zeros at and past S. 16-B vector loads of IN.
+// Copies samples [g0, g0 + span_len) of signal `sig` (length S) into the
+// padded span, bf16, zeros at and past S; of each hop only its first `row`
+// samples. 16-B vector loads of IN.
 template <typename IN>
-__device__ void load_span_typed(__nv_bfloat16* span, const IN* row, int S,
-                                int g0, int span_len, int hop, int pad,
-                                int tid) {
+__device__ void load_span_typed(__nv_bfloat16* span, const IN* sig, int S,
+                                int g0, int span_len, int hop, int row,
+                                int pad, int tid) {
   constexpr int EPV = 16 / sizeof(IN);
-  const IN* src = row + g0;
+  const IN* src = sig + g0;
   const uintptr_t addr = reinterpret_cast<uintptr_t>(src);
   const int head = (int)((addr & 15) / sizeof(IN));
   const uint4* vsrc = reinterpret_cast<const uint4*>(addr - (addr & 15));
@@ -375,9 +395,10 @@ __device__ void load_span_typed(__nv_bfloat16* span, const IN* row, int S,
 #pragma unroll
       for (int e = 0; e < EPV; ++e) {
         const int q = p0 + e;
-        if (q < 0 || q >= span_len) continue;
-        span[j * (hop + pad) + r] =
-            q < valid ? to_bf16(vals[e]) : __float2bfloat16_rn(0.0f);
+        if (q >= 0 && q < span_len && r < row) {
+          span[j * (row + pad) + r] =
+              q < valid ? to_bf16(vals[e]) : __float2bfloat16_rn(0.0f);
+        }
         if (++r == hop) {
           r = 0;
           ++j;
@@ -389,15 +410,15 @@ __device__ void load_span_typed(__nv_bfloat16* span, const IN* row, int S,
 
 __device__ __forceinline__ void load_span(__nv_bfloat16* span, const void* x,
                                           bool x_f32, int b, int S, int g0,
-                                          int span_len, int hop, int pad,
-                                          int tid) {
+                                          int span_len, int hop, int row,
+                                          int pad, int tid) {
   if (x_f32) {
     load_span_typed(span, static_cast<const float*>(x) + (size_t)b * S, S,
-                    g0, span_len, hop, pad, tid);
+                    g0, span_len, hop, row, pad, tid);
   } else {
     load_span_typed(span,
                     static_cast<const __nv_bfloat16*>(x) + (size_t)b * S, S,
-                    g0, span_len, hop, pad, tid);
+                    g0, span_len, hop, row, pad, tid);
   }
 }
 
@@ -408,21 +429,23 @@ __device__ __forceinline__ void load_span(__nv_bfloat16* span, const void* x,
 // This thread's view of the span for m64k16 A fragments. Per warp w of a
 // consumer warpgroup, lane l holds frames r0 = 16w + l/4 and r0 + 8, and
 // window positions k + 2(l%4) + {0, 1} and those + 8 of each 16-deep step
-// (registers {r0, k}, {r0+8, k}, {r0, k+8}, {r0+8, k+8}).
+// (registers {r0, k}, {r0+8, k}, {r0, k+8}, {r0+8, k+8}). Frames past the
+// block's last (`last`) read the last one instead.
 template <bool ODD>
 struct FrameCursor {
   const __nv_bfloat16* span;
   int row0, row8;  // element offsets of the two frames' starts
   int hop, pad, K;
   // Window position of register pairs {k} and {k+8}, their offsets in the
-  // padded span (k + pad * (k / hop)) and the next row boundary.
+  // padded span (k + pad * (k / hop): a window crosses a row boundary only
+  // where rows are whole hops) and the next row boundary.
   int ka, ga, ba, kb, gb, bb;
 
-  __device__ FrameCursor(const __nv_bfloat16* span_, int frame0, int hop_,
-                         int pad_, int K_)
+  __device__ FrameCursor(const __nv_bfloat16* span_, int frame0, int last,
+                         int hop_, int row, int pad_, int K_)
       : span(span_), hop(hop_), pad(pad_), K(K_) {
-    row0 = frame0 * (hop + pad);
-    row8 = (frame0 + 8) * (hop + pad);
+    row0 = min(frame0, last) * (row + pad);
+    row8 = min(frame0 + 8, last) * (row + pad);
   }
 
   // Back to window position 0 (the start of an N tile).
@@ -512,6 +535,16 @@ __device__ __forceinline__ void mma_window(float (&acc)[64],
     wgmma_wait_all();
     fence_regs(acc);
     fence_regs(a);
+    consume_release(sm, pos);
+  }
+}
+
+// A warpgroup with no frames of its own: waits on and releases `n` ring
+// stages, as the consumer that reads them would.
+__device__ __forceinline__ void skip_stages(const Smem& sm, RingPos& pos,
+                                            int n) {
+  for (int c = 0; c < n; ++c) {
+    consume_wait(sm, pos);
     consume_release(sm, pos);
   }
 }

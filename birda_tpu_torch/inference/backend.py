@@ -11,6 +11,7 @@ reports.
 
 from __future__ import annotations
 
+import subprocess
 from dataclasses import dataclass
 from typing import Optional
 
@@ -19,7 +20,7 @@ import torch
 from ..errors import RuntimeInitialization
 
 __all__ = ["AUTO", "CPU", "CUDA", "BackendStatus", "available_backends",
-           "select_backend"]
+           "card_line", "provider_metadata", "select_backend"]
 
 CUDA = "cuda"
 CPU = "cpu"
@@ -44,6 +45,28 @@ class BackendStatus:
 def available_backends() -> list[str]:
     """Backends this process can run on, in preference order."""
     return [CUDA, CPU] if torch.cuda.is_available() else [CPU]
+
+
+def provider_metadata(platform: str) -> dict:
+    """id/name/description of a backend of :func:`available_backends` for
+    the ``providers`` command: the CPU as the JAX package describes it, the
+    CUDA card by its name."""
+    if platform == CPU:
+        return {"id": CPU, "name": "CPU",
+                "description": "CPU (always available)"}
+    return {"id": CUDA, "name": "CUDA",
+            "description": f"CUDA ({torch.cuda.get_device_name(0)})"}
+
+
+def card_line() -> str:
+    """The first card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them: what a
+    time measured on the card is reported beside."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def select_backend(requested: str = AUTO

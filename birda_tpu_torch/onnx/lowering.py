@@ -45,8 +45,12 @@ fused spectrogram front-end ``BirdaFusedMelFrontend`` that
 hand-written CUDA kernels carry the front-ends: the fused node runs
 ``ops/stft_conv.py::fused_logmel``, and a single-channel long-kernel Conv1d
 the fusion pass did not take (the unfused Conv1d-STFT, Perch v2's framing
-conv) runs ``ops/stft_conv.py::conv1d_stft``. A graph outside the op set
-fails at load with the full list (``preflight_or_raise``).
+conv) runs ``ops/stft_conv.py::conv1d_stft``, each where its kernel holds
+the node's geometry (``conv1d_kernel_fits``, ``logmel_kernel_fits``, from
+static shapes on every device); any other geometry runs the JAX
+evaluator's composed route for that node, and ``stft_conv.ROUTES`` counts
+which route each node took. A graph outside the op set fails at load with
+the full list (``preflight_or_raise``).
 """
 
 from __future__ import annotations
@@ -1765,9 +1769,16 @@ class _Evaluator:
             # stride: the unfused windowed DFT, Perch v2's framer).
             k, hop = w.shape[2], strides[0]
             if self.compute_dtype == torch.bfloat16:
+                if not stft_conv.conv1d_kernel_fits(x.shape[2], k, hop,
+                                                    w.shape[0]):
+                    # A geometry the kernel cannot hold: the JAX package's
+                    # composed route, decided from shapes alone.
+                    stft_conv.count_route("conv1d_stft", "composed")
+                    return self._conv1d_composed(dev, x, w, b, hop)
                 # The hand-written kernel (bf16 operands, fp32 sums, bf16
                 # [B, C, T] out); the bias joins after it in bf16, as on
                 # the JAX package's kernel path.
+                stft_conv.count_route("conv1d_stft", "kernel")
                 layout = self._conv1d_layout(node.outputs[0], w, dev) \
                     if dev.type == "cuda" \
                     else None
@@ -1778,13 +1789,8 @@ class _Evaluator:
                     out = out + self._tensor(b, dev, out.dtype).reshape(
                         1, -1, 1)
                 return out
-            # fp32: strided frames as an unfold view times the weight
-            # matrix, one plain matmul (the JAX fp32 route's gather form).
-            xx, wm = self._mm_cast(dev, x[:, 0, :], w[:, 0, :])
-            frames = xx.unfold(-1, k, hop)  # [B, T, k]
-            out = self._contract(lambda f, m: torch.matmul(f, m.T),
-                                 frames, wm).transpose(1, 2)
-            return self._mm_out(self._bias(out, b, 1))
+            # fp32: the JAX fp32 route's gather form.
+            return self._conv1d_composed(dev, x, w, b, hop)
         x, w = self._mm_cast(dev, x, w)
         if x.is_floating_point() != w.is_floating_point():
             raise UnsupportedOnnxOp(
@@ -1824,11 +1830,44 @@ class _Evaluator:
             sig = sig if sig.ndim == 2 else sig[:, :, 0]
         else:
             sig = sig[:, 0, :]
+        wm = self._tensor(w, dev)[:, 0, :]
+        (c, k), m = wm.shape, np.shape(fb)[1]
+        if not stft_conv.logmel_kernel_fits(sig.shape[-1], k, hop, c, m):
+            # A geometry the kernel cannot hold: the JAX package's composed
+            # route, decided from shapes alone.
+            stft_conv.count_route("fused_logmel", "composed")
+            return self._logmel_composed(dev, sig, wm, fb, hop, eps)
+        stft_conv.count_route("fused_logmel", "kernel")
         layout = self._logmel_layout(w, fb, dev) if dev.type == "cuda" \
             else None
-        wm = self._tensor(w, dev)[:, 0, :]
         return stft_conv.fused_logmel(sig, wm, self._tensor(fb, dev),
                                       hop=hop, eps=eps, prepared=layout)
+
+    def _conv1d_composed(self, dev, x, w, b, hop: int):
+        """The JAX evaluator's gather-form Conv1d-STFT
+        (``birda_tpu/onnx/lowering.py::op_Conv``'s composed branch) with its
+        dtypes: compute-dtype frames (an unfold view) times the weight,
+        summed in fp32, the bias added in fp32, one ``_mm_out`` cast."""
+        xx, wm = self._mm_cast(dev, x[:, 0, :], w[:, 0, :])
+        frames = xx.unfold(-1, wm.shape[1], hop)  # [B, T, k]
+        out = torch.matmul(frames.float(), wm.float().T).transpose(1, 2)
+        return self._mm_out(self._bias(out, b, 1))
+
+    def _logmel_composed(self, dev, sig, wm, fb, hop: int, eps: float):
+        """The JAX evaluator's composed log-mel
+        (``birda_tpu/onnx/lowering.py::op_BirdaFusedMelFrontend``'s
+        fallback) with its dtypes: the DFT of compute-dtype frames summed in
+        fp32, the power from the re/im halves in fp32 and cast by
+        ``_mm_out``, the mel product summed in fp32, ``log(mel + eps)`` and
+        ``_mm_out``."""
+        bins = wm.shape[0] // 2
+        xx, wc = self._mm_cast(dev, sig, wm)
+        frames = xx.unfold(-1, wc.shape[1], hop)  # [B, T, k]
+        spec = torch.matmul(frames.float(), wc.float().T)
+        re, im = spec[..., :bins], spec[..., bins:2 * bins]
+        power, fbc = self._mm_cast(dev, self._mm_out(re * re + im * im), fb)
+        mel = torch.matmul(power.float(), fbc.float())
+        return self._mm_out(torch.log(mel + float(np.float32(eps))))
 
     def _conv1d_layout(self, out_name: str, w, device):
         """The Conv1d-STFT kernel's layout of the weight of the conv that
@@ -3904,20 +3943,26 @@ class OnnxFunction:
         """Lay out the weights of every front-end that runs a CUDA kernel
         now (once, at load) rather than on the first call: each fused
         front-end's DFT weight and filterbank, and, in bf16, each
-        single-channel long-kernel Conv1d weight."""
+        single-channel long-kernel Conv1d weight, where the kernel can hold
+        the node's geometry at any signal of at least one window."""
         bf16 = self._eval.compute_dtype == torch.bfloat16
         for node in self.graph.nodes:
             if node.op_type == "BirdaFusedMelFrontend":
                 w, fb = (params.get(n, self._eval.const.get(n))
                          for n in node.inputs[1:3])
                 dev = _device_of(w, fb)
-                if dev.type == "cuda":
+                (c, _, k), m = w.shape, fb.shape[1]
+                if dev.type == "cuda" and stft_conv.logmel_kernel_fits(
+                        k, k, node.attr("hop"), c, m):
                     self._eval._logmel_layout(w, fb, dev)
             elif node.op_type == "Conv" and bf16 and len(node.inputs) > 1:
                 w = params.get(node.inputs[1])
+                hop = (node.attr("strides") or [1])[0]
                 if (isinstance(w, torch.Tensor) and w.device.type == "cuda"
                         and w.ndim == 3 and w.shape[1] == 1
-                        and w.shape[2] >= 256):
+                        and w.shape[2] >= 256
+                        and stft_conv.conv1d_kernel_fits(
+                            w.shape[2], w.shape[2], hop, w.shape[0])):
                     self._eval._conv1d_layout(node.outputs[0], w,
                                                w.device)
 

@@ -39,20 +39,36 @@ LAUNCHES: Counter = Counter()
 _launches_lock = threading.Lock()  # --jobs workers launch concurrently
 
 
+#: The route each front-end node took, by ``"<kernel>:kernel"`` or
+#: ``"<kernel>:composed"``, counted by the evaluator once per node call on
+#: every device: decided from static shapes alone
+#: (:func:`conv1d_kernel_fits`, :func:`logmel_kernel_fits`), so a CPU run
+#: reports the route the card would take.
+ROUTES: Counter = Counter()
+
+
 def _count_launch(name: str) -> None:
     with _launches_lock:
         LAUNCHES[name] += 1
 
-#: Widest mel output (sum of the banks) the kernel's register tiling holds.
-MAX_MELS = 256
+
+def count_route(name: str, route: str) -> None:
+    with _launches_lock:
+        ROUTES[f"{name}:{route}"] += 1
+
+#: Widest mel output (sum of the banks) one pass of the kernel's register
+#: tiling holds; a wider front end takes several passes
+#: (:func:`mel_passes`).
+MAX_PASS_MELS = 256
 
 
 #: ctypes signatures of each kernel library's launch function.
 _SIGNATURES = {
     "fused_logmel": ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
-                     + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]),
+                     + [ctypes.c_int] * 13
+                     + [ctypes.c_float, ctypes.c_void_p]),
     "conv1d_stft": ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
-                    + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
+                    + [ctypes.c_int] * 11 + [ctypes.c_void_p]),
 }
 
 #: csrc/strided_window_gemm.cuh: ring stages of one 16 KB weight chunk
@@ -60,9 +76,17 @@ _SIGNATURES = {
 RING_STAGES = 4
 STAGE_BYTES = 16 * 1024
 SMEM_LIMIT = 232_448
-#: conv1d_stft.cu's transposed output staging: two warpgroups x 128
-#: channels x 72 bf16.
-CONV_STAGING_BYTES = 2 * 128 * 72 * 2
+#: conv1d_stft.cu's transposed output staging of one consumer warpgroup:
+#: 128 channels x 72 bf16.
+CONV_STAGING_BYTES = 128 * 72 * 2
+#: strided_window_gemm.cuh's window depth per ring stage: the kernels pad
+#: K to whole chunks of it.
+TILE_K = 64
+#: Frames per block the mainloop takes, widest first: 128 (two consumer
+#: warpgroups of 64), or fewer (one warpgroup, whose rows past them repeat
+#: the last frame) where the span of more frames does not fit shared
+#: memory.
+FRAME_BLOCKS = (128, 64, 32, 16, 8, 4, 2, 1)
 
 
 def _lib(name: str):
@@ -112,33 +136,99 @@ def swizzle128(t: torch.Tensor) -> torch.Tensor:
     return v[..., r, u ^ (r % 8), :].reshape(t.shape)
 
 
-def span_pad(hop: int) -> int:
-    """Samples of padding after each ``hop``-sample row of the signal span
+def span_pad(row: int) -> int:
+    """Samples of padding after each ``row``-sample row of the signal span
     in shared memory, so that the eight frames one warp reads at one window
-    position fall on distinct banks: the row stride ``(hop + pad) / 2``
-    words is 4 mod 8. 0 for an odd hop (2-byte loads) or a hop below 16."""
-    if hop % 2 or hop < 16:
+    position fall on distinct banks: the row stride ``(row + pad) / 2``
+    words is 4 mod 8. 0 for an odd row (2-byte loads) or a row below 16."""
+    if row % 2 or row < 16:
         return 0
-    return 2 * ((4 - hop // 2) % 8)
+    return 2 * ((4 - row // 2) % 8)
 
 
-def span_smem_bytes(hop: int, k_pad: int, extra: int = 0) -> int:
+def span_row(hop: int, k_pad: int) -> int:
+    """Samples of each hop the span stores: all of it, or only the first
+    ``k_pad`` where the hop is longer than the window (the rest no frame
+    reads)."""
+    return min(hop, k_pad)
+
+
+def span_smem_bytes(hop: int, k_pad: int, extra: int = 0,
+                    frames: int = 128) -> int:
     """Dynamic shared memory of one block (strided_window_gemm.cuh::
     smem_bytes): alignment slack, the weight ring, its barriers, the padded
-    span of 128 frames and ``extra`` epilogue bytes."""
-    rows = 128 - 1 + -(-k_pad // hop)
-    span = -(-rows * (hop + span_pad(hop)) * 2 // 16) * 16
+    span of ``frames`` frames and ``extra`` epilogue bytes."""
+    rows = frames - 1 + -(-k_pad // hop)
+    row = span_row(hop, k_pad)
+    span = -(-rows * (row + span_pad(row)) * 2 // 16) * 16
     return 1024 + RING_STAGES * STAGE_BYTES + 2 * RING_STAGES * 8 + span \
         + extra
 
 
-def _check_span(name: str, hop: int, k_pad: int, extra: int) -> None:
-    need = span_smem_bytes(hop, k_pad, extra)
-    if need > SMEM_LIMIT:
+def _frames(hop: int, k: int, staging: int) -> int | None:
+    """The most frames per block (:data:`FRAME_BLOCKS`) whose span, and
+    ``staging`` bytes per consumer warpgroup, fit a block's shared memory;
+    None where not even the fewest do."""
+    k_pad = -(-k // TILE_K) * TILE_K
+    for frames in FRAME_BLOCKS:
+        extra = staging * (2 if frames > 64 else 1)
+        if span_smem_bytes(hop, k_pad, extra, frames) <= SMEM_LIMIT:
+            return frames
+    return None
+
+
+def conv1d_frames(hop: int, k: int) -> int | None:
+    """Frames per block of :func:`conv1d_stft`'s kernel at ``hop`` and a
+    ``k``-sample window (None: it cannot hold the span)."""
+    return _frames(hop, k, CONV_STAGING_BYTES)
+
+
+def logmel_frames(hop: int, k: int) -> int | None:
+    """Frames per block of :func:`fused_logmel`'s kernel at ``hop`` and a
+    ``k``-sample window (None: it cannot hold the span)."""
+    return _frames(hop, k, 0)
+
+
+def mel_passes(m: int) -> tuple[int, int]:
+    """(passes, padded mel width of one pass) of :func:`fused_logmel`'s
+    kernel for ``m`` mel outputs: equal column ranges of at most
+    :data:`MAX_PASS_MELS`, each padded to a multiple of 32."""
+    passes = -(-m // MAX_PASS_MELS)
+    width = -(-m // passes)
+    return passes, -(-width // 32) * 32
+
+
+def conv1d_kernel_fits(s: int, k: int, hop: int, c: int) -> bool:
+    """Whether :func:`conv1d_stft`'s kernel holds ``[B, s] x [c, k]`` at
+    ``hop``: a window no longer than the signal, and the span of at least
+    one frame with its output staging within a block's shared memory (the
+    check the wrapper raises on: a window of up to about 73,000 samples);
+    any ``c``, which the kernel tiles. Static: the same answer on every
+    device."""
+    return s >= k and conv1d_frames(hop, k) is not None
+
+
+def logmel_kernel_fits(s: int, k: int, hop: int, c: int, m: int) -> bool:
+    """Whether :func:`fused_logmel`'s kernel holds ``[B, s] x [c, k] x
+    [c // 2, m]`` at ``hop``: a window no longer than the signal and the
+    span of at least one frame within a block's shared memory (a window of
+    up to about 82,000 samples); any ``c`` and ``m``, which the kernel
+    tiles (``m`` in passes of at most 256). Static: the same answer on
+    every device."""
+    return s >= k and logmel_frames(hop, k) is not None
+
+
+def _span_args(name: str, hop: int, k: int, frames: int | None
+               ) -> tuple[int, int, int]:
+    """(row, pad, frames) of a launch, or the refusal of a span no block
+    holds."""
+    if frames is None:
         raise ValueError(
-            f"{name}: the signal span of 128 frames at hop {hop} and a "
-            f"{k_pad}-sample window needs {need} bytes of shared memory, "
-            f"more than the {SMEM_LIMIT} a block may use")
+            f"{name}: the signal span of one frame at hop {hop} and a "
+            f"{k}-sample window needs more than the "
+            f"{SMEM_LIMIT} bytes of shared memory a block may use")
+    row = span_row(hop, -(-k // TILE_K) * TILE_K)
+    return row, span_pad(row), frames
 
 
 def _signal(name: str, x: torch.Tensor) -> torch.Tensor:
@@ -162,7 +252,9 @@ class LogmelWeights:
     :func:`swizzle128` image. ``fb``: ``[n_bin_tiles, mp, tile_bins]`` bf16
     — for each bin tile, the filterbank transposed to ``[mel, bin]``,
     zero-padded to whole bin tiles and to ``mp``, the mel width rounded up
-    to a multiple of 32, swizzled the same way.
+    to a multiple of 32, swizzled the same way. Past 256 mels ``mp`` is
+    ``passes`` equal ranges of ``pass_mp`` columns (:func:`mel_passes`),
+    one per pass of the kernel.
     """
 
     w: torch.Tensor
@@ -170,6 +262,8 @@ class LogmelWeights:
     bins: int
     k: int
     m: int
+    passes: int
+    pass_mp: int
 
 
 def prepare_logmel_weights(w: torch.Tensor, fb: torch.Tensor
@@ -179,12 +273,12 @@ def prepare_logmel_weights(w: torch.Tensor, fb: torch.Tensor
     bins, m = fb.shape
     if c != 2 * bins:
         raise ValueError(f"DFT weight has {c} rows for {bins} bins")
-    if m > MAX_MELS:
-        raise ValueError(
-            f"fused_logmel holds at most {MAX_MELS} mel outputs (got {m})")
+    if m < 1:
+        raise ValueError("fused_logmel needs at least one mel output")
     _, tb, tk = _tiles()
     nbt, nkc = -(-bins // tb), -(-k // tk)
-    mp = -(-m // 32) * 32
+    passes, pass_mp = mel_passes(m)
+    mp = passes * pass_mp
     dev = w.device
     banks = torch.zeros((2, nbt * tb, nkc * tk), dtype=torch.bfloat16,
                         device=dev)
@@ -198,7 +292,8 @@ def prepare_logmel_weights(w: torch.Tensor, fb: torch.Tensor
     fbp = fbp.view(nbt, tb, mp).transpose(1, 2)  # [nbt, mp, tb]
     return LogmelWeights(w=swizzle128(wp).contiguous(),
                          fb=swizzle128(fbp).contiguous(),
-                         bins=bins, k=k, m=m)
+                         bins=bins, k=k, m=m, passes=passes,
+                         pass_mp=pass_mp)
 
 
 def fused_logmel_reference(x: torch.Tensor, w: torch.Tensor,
@@ -248,9 +343,9 @@ def fused_logmel(x: torch.Tensor, w: torch.Tensor, fb: torch.Tensor,
     if s < k:
         raise ValueError(f"fused_logmel: signal of {s} samples is shorter "
                          f"than the {k}-sample window")
-    _, _, tk = _tiles()
     n_bin_tiles, n_kc = prepared.w.shape[0], prepared.w.shape[1]
-    _check_span("fused_logmel", hop, n_kc * tk, 0)
+    row, pad, frames = _span_args("fused_logmel", hop, k,
+                                  logmel_frames(hop, k))
     t = (s - k) // hop + 1
     with torch.cuda.device(x.device):
         out = torch.empty((b, t, m), dtype=torch.bfloat16, device=x.device)
@@ -258,8 +353,8 @@ def fused_logmel(x: torch.Tensor, w: torch.Tensor, fb: torch.Tensor,
         rc = _lib("fused_logmel").birda_fused_logmel(
             x.data_ptr(), int(x.dtype == torch.float32),
             prepared.w.data_ptr(), prepared.fb.data_ptr(), out.data_ptr(),
-            b, s, hop, span_pad(hop), k, t, m, prepared.fb.shape[1],
-            n_bin_tiles, n_kc, float(eps), stream)
+            b, s, hop, row, pad, frames, k, t, m, prepared.pass_mp,
+            prepared.passes, n_bin_tiles, n_kc, float(eps), stream)
     if rc != 0:
         raise RuntimeError(f"fused_logmel kernel launch failed: CUDA error "
                            f"{rc}")
@@ -340,17 +435,17 @@ def conv1d_stft(x: torch.Tensor, w: torch.Tensor, hop: int,
     if s < k:
         raise ValueError(f"conv1d_stft: signal of {s} samples is shorter "
                          f"than the {k}-sample window")
-    _, _, tk = _conv_tiles()
     n_c_tiles, n_kc = prepared.w.shape[0], prepared.w.shape[1]
-    _check_span("conv1d_stft", hop, n_kc * tk, CONV_STAGING_BYTES)
+    row, pad, frames = _span_args("conv1d_stft", hop, k,
+                                  conv1d_frames(hop, k))
     t = (s - k) // hop + 1
     with torch.cuda.device(x.device):
         out = torch.empty((b, c, t), dtype=torch.bfloat16, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _lib("conv1d_stft").birda_conv1d_stft(
             x.data_ptr(), int(x.dtype == torch.float32),
-            prepared.w.data_ptr(), out.data_ptr(), b, s, hop, span_pad(hop),
-            k, t, c, n_c_tiles, n_kc, stream)
+            prepared.w.data_ptr(), out.data_ptr(), b, s, hop, row, pad,
+            frames, k, t, c, n_c_tiles, n_kc, stream)
     if rc != 0:
         raise RuntimeError(f"conv1d_stft kernel launch failed: CUDA error "
                            f"{rc}")

@@ -58,6 +58,21 @@ against the CPU, each refusal refused on the card, each case that runs
 called a second time with no host sync, and the recurrences' kernels per
 time step).
 
+Then the tools and the rest of the command line, on v2.4: ``kernel_routes``
+(each geometry of ``tests/torch_route_graphs.py`` through ``lower`` in bf16
+against the port's CPU run: the shipped and the wide front ends on their
+kernels, one window past shared memory on the JAX package's composed
+route, none raising), ``verify_kernels`` (``scripts/verify_kernels_cuda.py``'s
+cases: both kernels at ``verify_kernels_tpu.py``'s three geometries and at
+the wide ones against float64, timed), ``parity_v24`` (``onnx/parity.py``'s
+captures of the card's fp32 and bf16 runs of the full-scale graph walked
+against recordings of the port's CPU runs, and its walk naming a planted
+perturbation), ``accept_v24``
+(``scripts/torch_accept_asset.py`` with that recording as its reference)
+and ``cli_commands`` (the port's CLI in subprocesses: ``version``,
+``providers``, ``config``, ``models add``/``check``/``list``, a bare-file
+``analyze`` in bf16 and ``clip`` on its CSV).
+
 Each main path runs with the launch counts set to 0 just before it and read
 just after, and must have launched its kernel (the native path: none). Each model's bf16, int8 and
 (v2.4) mixed routes are compared with its fp32 route on one chunk, and each
@@ -85,6 +100,11 @@ import time
 import wave
 from pathlib import Path
 
+# The port's measurement helpers: the card's name and power limit, device
+# time per call and the card's least time for a piece of work.
+from birda_tpu_torch.inference.backend import card_line
+from birda_tpu_torch.ops.measure import bound, timed_ms
+
 #: Bounds: the JAX package's own on-chip log-mel bound
 #: (scripts/verify_kernels_tpu.py), its Conv1d-STFT kernel bound (max error
 #: over max |want|, tests/test_stft_kernel.py) and its bf16-vs-fp32 score
@@ -97,9 +117,6 @@ SCORE_DRIFT_BOUND = 5e-2
 SEQ_FP32_BOUND = 1e-3
 BATCH = 32
 SEED = 1
-#: Timing: calls queued back to back per window, and windows (median).
-TIMING_REPS = 20
-TIMING_ROUNDS = 7
 #: Chunk steps timed on the host clock, and chunk steps profiled.
 STEP_ITERS = 10
 PROFILE_STEPS = 3
@@ -124,10 +141,6 @@ REGION_REL_BOUND = 1e-5
 #: and early in the year its scores spread over (0, 1) instead of
 #: saturating.
 GEO_QUERY = (0.5, -1.2, 2)
-#: One NVIDIA H100 SXM, from its published specification: HBM bytes per
-#: second and dense bf16 tensor-core operations per second.
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
 
 
 def emit(obj) -> None:
@@ -137,41 +150,6 @@ def emit(obj) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {what}")
-
-
-def timed_ms(fn) -> float:
-    """Device time per call of ``fn``: after a warm-up, a sleep kernel lets
-    the host queue ``TIMING_REPS`` calls, which then run back to back
-    between two CUDA events, so the host's own time per call is not counted;
-    the median of ``TIMING_ROUNDS`` such windows."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(TIMING_ROUNDS):
-        torch.cuda._sleep(50_000_000)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(TIMING_REPS):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / TIMING_REPS)
-    times.sort()
-    return times[len(times) // 2]
-
-
-def bound(n_bytes: int, flops: int) -> dict:
-    """The least time the card could take: the larger of the bytes over
-    the memory rate and the bf16 operations over the tensor-core rate."""
-    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / BF16_FLOP_PER_S * 1e3
-    return {"bytes": n_bytes, "flops": flops,
-            "bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def nbytes(*tensors) -> int:
@@ -1854,6 +1832,311 @@ def seq_phase(tmp: Path, dev):
     return launches
 
 
+# -- the front-end routes, the kernel check, the parity tool, the acceptance
+# -- rehearsal and the CLI ----------------------------------------------------
+
+def _script(name: str):
+    """A module of ``scripts/`` (the port's tools), imported by name."""
+    scripts = str(Path(__file__).resolve().parent / "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    import importlib
+
+    return importlib.import_module(name)
+
+
+def kernel_routes_phase(dev):
+    """Every geometry of ``tests/torch_route_graphs.py`` through ``lower``
+    in bf16 on the card against the port's CPU bf16 run of the same graph
+    (within 2e-2 of the largest magnitude): the shipped front ends and the
+    wide ones (hop 512 and 1024 convs, a hop 640 and a 320-mel fused front
+    end, in fewer frames per block or two mel passes) on their kernels, a
+    conv whose one window outgrows shared memory on the JAX package's
+    composed route, none raising. Returns the launch counts."""
+    import torch_route_graphs as rg
+
+    from birda_tpu_torch.ops import stft_conv
+
+    verify = _script("verify_kernels_cuda")
+    total = {}
+    for case in rg.CASES:
+        stft_conv.LAUNCHES.clear()
+        rec = verify.route_case(case, 2, dev)
+        for k, v in stft_conv.LAUNCHES.items():
+            total[k] = total.get(k, 0) + v
+        emit({"phase": "kernel_routes", **rec})
+        check(rec["ok"], f"kernel_routes {case.name}: {rec}")
+    return total
+
+
+def verify_kernels_phase(dev):
+    """``scripts/verify_kernels_cuda.py``'s kernel cases: both kernels at
+    ``verify_kernels_tpu.py``'s three geometries and at the wide ones
+    (fewer frames per block, two mel passes), batch 4, against float64
+    (conv max error over max |want| < 2e-2, log-mel q99 < 5e-2) and their
+    plain versions, timed. Returns the records and the checked calls'
+    launch counts."""
+    verify = _script("verify_kernels_cuda")
+    records, total = {}, {}
+    for name, s, k, hop, mels in verify.STFT_CASES + verify.WIDE_CASES:
+        rec = verify.stft_case(name, s, k, hop, mels, 4, dev)
+        for kernel, n in rec["launches"].items():
+            total[kernel] = total.get(kernel, 0) + n
+        emit({"phase": "verify_kernels", **rec})
+        check(rec["ok"], f"verify_kernels {name}: {rec}")
+        records[name] = rec
+    return records, total
+
+
+def _tensor_errors(got: dict, want: dict, order: list) -> list:
+    """(tensor, max |got - want|, max |want|) over the tensors both hold,
+    in execution order (the recorded magnitude scales a bf16 error)."""
+    import numpy as np
+
+    out = []
+    for name in order:
+        if name in got and name in want and np.size(want[name]):
+            g = np.asarray(got[name], np.float64)
+            w = np.asarray(want[name], np.float64)
+            if g.shape == w.shape:
+                out.append((name, float(np.abs(g - w).max()),
+                            float(np.abs(w).max())))
+    return out
+
+
+def _first_over(errs: list, tol: float):
+    """The first tensor of ``_tensor_errors``' list, in execution order,
+    whose error exceeds ``tol`` times its largest recorded magnitude (None
+    when none does): the bisection walk with a bound that scales with the
+    values a run rounds."""
+    return next(({"tensor": name, "max_abs_err": err, "magnitude": mag}
+                 for name, err, mag in errs if err > tol * mag), None)
+
+
+def parity_phase(spec, onnx_path, dev):
+    """The per-node bisection tool (``onnx/parity.py``) on full-scale v2.4:
+    a recording of the port's CPU run (``capture_activations``), then the
+    card's captures walked against it in execution order, fp32 at 1e-3 and
+    bf16 (against the CPU's bf16 run, the front end fused) at 5e-2, each of
+    the tensor's largest recorded magnitude (the power spectrum reaches
+    2.3e4, where one fp32 step is 2e-3, past the tool's absolute 1e-3),
+    neither diverging; the bf16 capture launches ``fused_logmel`` once.
+    ``find_first_divergence`` itself, with its absolute 1e-3, names a
+    perturbation planted in the stem conv's weight against the card's own
+    fp32 capture. Returns the fp32 recording, the signal rows, the CPU's
+    fp32 scores of them and the bf16 capture's launch counts."""
+    import numpy as np
+    import torch
+
+    from birda_tpu_torch.models.zoo import params_from_numpy
+    from birda_tpu_torch.onnx import parity
+    from birda_tpu_torch.onnx.lowering import lower
+    from birda_tpu_torch.ops import stft_conv
+
+    rows = 8
+    s = spec.sample_count
+    x = recording(spec.sample_rate, rows * s / spec.sample_rate,
+                  SEED + 30).reshape(rows, s)
+    model_bytes = onnx_path.read_bytes()
+    t0 = time.perf_counter()
+    fn32 = lower(model_bytes)
+    order = list(fn32.input_names) + [o for n in fn32.graph.nodes
+                                      for o in n.outputs if o]
+    recorded = parity.capture_activations(fn32, x[:1], device="cpu")
+    with torch.inference_mode():
+        scores = fn32(torch.from_numpy(x))[0].numpy()
+    cpu_s = time.perf_counter() - t0
+    p32 = params_from_numpy(fn32.params, dev)
+    card32 = parity.capture_activations(fn32, x[:1], params=p32)
+    err32 = _tensor_errors(card32, recorded, order)
+    div32 = _first_over(err32, 1e-3)
+
+    fnb = lower(model_bytes, compute_dtype=torch.bfloat16)
+    orderb = list(fnb.input_names) + [o for n in fnb.graph.nodes
+                                      for o in n.outputs if o]
+    cpub = parity.capture_activations(
+        fnb, x[:1], params=params_from_numpy(fnb.params, "cpu",
+                                             torch.bfloat16), device="cpu")
+    pb = params_from_numpy(fnb.params, dev, torch.bfloat16)
+    fnb.prepare(pb)
+    stft_conv.LAUNCHES.clear()
+    cardb = parity.capture_activations(fnb, x[:1], params=pb)
+    launches = dict(stft_conv.LAUNCHES)
+    errb = _tensor_errors(cardb, cpub, orderb)
+    errb32 = _tensor_errors(cardb, recorded, orderb)
+    divb = _first_over(errb, 5e-2)
+
+    # The stem conv: the first 2-D Conv (its weight an inline constant,
+    # which a run's params override).
+    weights = {**fn32._eval.const, **fn32.params}
+    stem = next(n for n in fn32.graph.nodes if n.op_type == "Conv"
+                and np.ndim(weights[n.inputs[1]]) == 4)
+    bad = {**p32, stem.inputs[1]: torch.from_numpy(
+        np.asarray(weights[stem.inputs[1]]) * np.float32(1.05)).to(dev)}
+    planted = parity.find_first_divergence(fn32, x[:1], card32, tol=1e-3,
+                                           params=bad)
+
+    def worst(errs):
+        name, err, mag = max(errs, key=lambda e: e[1])
+        return {"tensor": name, "max_abs_err": err, "magnitude": mag}
+
+    rec = {"phase": "parity_v24", "tensors_fp32": len(err32),
+           "tensors_bf16": len(errb), "cpu_recording_s": cpu_s,
+           "fp32_worst": worst(err32),
+           "fp32_worst_rel": max(e / m for _, e, m in err32 if m),
+           "fp32_divergence": div32,
+           "bf16_worst_vs_cpu_bf16": worst(errb),
+           "bf16_worst_rel_vs_cpu_bf16": max(
+               e / m for _, e, m in errb if m),
+           "bf16_worst_rel_vs_cpu_fp32": max(
+               e / m for _, e, m in errb32 if m),
+           "bf16_divergence": divb,
+           "bf16_launches": launches,
+           "planted": {"conv": stem.name,
+                       "named": planted.render() if planted else None}}
+    emit(rec)
+    check(div32 is None, f"parity_v24 fp32: {div32}")
+    check(divb is None, f"parity_v24 bf16: {divb}")
+    check(launches == {"fused_logmel": 1},
+          f"parity_v24 bf16 capture launches {launches}")
+    check(planted is not None and planted.tensor == stem.outputs[0]
+          and planted.op_type == "Conv",
+          f"parity_v24 planted: {rec['planted']}")
+    return recorded, x, scores, launches
+
+
+def accept_phase(tmp: Path, onnx_path, labels_path, recorded, x, scores):
+    """``scripts/torch_accept_asset.py`` on the full-scale v2.4 graph with
+    the parity phase's CPU recording as ``--reference`` (8 rows of scores,
+    every activation of the first): no gate may FAIL. Returns the launch
+    counts (the bf16 bench goes through ``fused_logmel``)."""
+    import numpy as np
+
+    from birda_tpu_torch.ops import stft_conv
+
+    ref = tmp / "v24_reference.npz"
+    np.savez(ref, inputs=x, scores=scores, node_input_rows=1,
+             **{f"node:{k}": v for k, v in recorded.items()})
+    out = tmp / "accept_v24.json"
+    accept = _script("torch_accept_asset")
+    stft_conv.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    rc = accept.main([str(onnx_path), str(labels_path), "--reference",
+                      str(ref), "--json", str(out)])
+    launches = dict(stft_conv.LAUNCHES)
+    report = json.loads(out.read_text())
+    gates = {g["gate"]: g for g in report["gates"]}
+    emit({"phase": "accept_v24", "exit_code": rc,
+          "seconds": time.perf_counter() - t0, "launches": launches,
+          "gates": {k: [g["status"], g["detail"]] for k, g in gates.items()}})
+    check(rc == 0 and not any(g["status"] == "FAIL"
+                              for g in gates.values()),
+          f"accept_v24: {report['gates']}")
+    check(launches.get("fused_logmel", 0) > 0,
+          f"accept_v24: the bf16 bench launched {launches}")
+    return launches
+
+
+#: Runs the port's CLI as ``python -m birda_tpu_torch.cli.main`` does and
+#: then prints the process's kernel launch counts.
+CLI_WITH_LAUNCHES = (
+    "import json, sys\n"
+    "from birda_tpu_torch.cli.main import main\n"
+    "from birda_tpu_torch.ops import stft_conv\n"
+    "rc = main(sys.argv[1:])\n"
+    "print('launches ' + json.dumps(dict(stft_conv.LAUNCHES)))\n"
+    "sys.exit(rc)\n")
+
+
+def clip_samples(csv_path: Path, wav: Path) -> list:
+    """The clips the JAX package's clipper cuts from ``csv_path`` at the
+    default padding: each detection group's sample count,
+    ``int(end * rate) - int(start * rate)``, cut at the end of the file
+    (``birda_tpu/clipper/extractor.py``); groups by
+    ``clipper/grouper.py``, a copy of the JAX package's."""
+    from birda_tpu_torch.clipper.grouper import group_detections
+    from birda_tpu_torch.clipper.parser import parse_detection_file
+    from birda_tpu_torch.constants import clipper as consts
+
+    with wave.open(str(wav)) as w:
+        rate, total = w.getframerate(), w.getnframes()
+    groups = group_detections(parse_detection_file(csv_path),
+                              consts.DEFAULT_PRE_PADDING,
+                              consts.DEFAULT_POST_PADDING)
+    return sorted(min(int(g.end * rate), total) - int(g.start * rate)
+                  for g in groups)
+
+
+def cli_phase(tmp: Path, onnx_path, labels_path):
+    """The port's CLI in subprocesses on the card, from a fresh home:
+    ``version``, ``providers`` (naming the card), ``config init``/``set``/
+    ``show``, ``models add`` of the full-scale v2.4 graph, ``models
+    check`` (OK) and ``models list``, a bare-file ``analyze`` of a 30 s
+    recording in bf16 (it must launch ``fused_logmel``), and ``clip`` on
+    that run's CSV: as many clips as detection groups, each of the JAX
+    clipper's sample count. Returns the analyze run's launch counts."""
+    import torch
+
+    root = tmp / "cli"
+    home = {f"XDG_{d.upper()}_HOME": str(root / d)
+            for d in ("config", "cache", "data")}
+    envs = {**os.environ, **home}
+    envs.pop("BIRDA_OUTPUT_MODE", None)
+    repo = str(Path(__file__).resolve().parent)
+    timings = {}
+
+    def cli(*argv, code=0, runner=("-m", "birda_tpu_torch.cli.main")):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, *runner, *map(str, argv)],
+                           cwd=repo, env=envs, capture_output=True,
+                           text=True, timeout=600)
+        timings[" ".join(map(str, argv[:2]))] = time.perf_counter() - t0
+        check(r.returncode == code,
+              f"cli {argv}: exit {r.returncode}\n{r.stdout}\n{r.stderr}")
+        return r.stdout
+
+    check(cli("version") == "birda 0.1.0\n", "cli version")
+    name = torch.cuda.get_device_name(0)
+    check(f"cuda: CUDA ({name})" in cli("providers"),
+          "cli providers: the card is not named")
+    providers = json.loads(cli("providers", "--output-mode", "json"))
+    cli("config", "init")
+    cli("config", "set", "defaults.min_confidence", "0.1")
+    check("min_confidence = 0.1" in cli("config", "show"), "cli config show")
+    cli("models", "add", "v24", "--path", onnx_path, "--labels",
+        labels_path, "--type", "birdnet-v24", "--default")
+    check("v24: OK" in cli("models", "check"), "cli models check")
+    check("v24 (default): birdnet-v24" in cli("models", "list"),
+          "cli models list")
+    wav = root / "rec.wav"
+    write_wav(wav, recording(48_000, 30.0, SEED + 40), 48_000)
+    out_dir = root / "out"
+    out = cli(wav, "-m", "v24", "--precision", "bf16", "-b", BATCH, "-o",
+              out_dir, "-q", runner=("-c", CLI_WITH_LAUNCHES))
+    launches = json.loads(out.strip().splitlines()[-1].split(" ", 1)[1])
+    check(launches.get("fused_logmel", 0) > 0,
+          f"cli analyze: fused_logmel launched {launches}")
+    csv = out_dir / "rec.BirdNET.results.csv"
+    want = clip_samples(csv, wav)
+    clips = json.loads(cli("clip", csv, "--base-dir", root, "-o",
+                           root / "clips", "--output-mode", "json"))
+    payload = next(e for e in clips if e["event"] == "result")["payload"]
+    got = []
+    for c in payload["clips"]:
+        with wave.open(c["output_file"]) as w:
+            got.append(w.getnframes())
+    rec = {"phase": "cli_commands", "launches": launches,
+           "providers": providers[0]["payload"]["providers"],
+           "detection_groups": len(want), "clips": payload["total_clips"],
+           "clip_samples": sorted(got), "seconds": timings}
+    emit(rec)
+    check(len(want) > 0, "cli analyze: no detections to clip")
+    check(payload["total_clips"] == len(want) and sorted(got) == want,
+          f"cli clip: {len(got)} clips {sorted(got)} against the JAX "
+          f"clipper's {want}")
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, case, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1874,18 +2157,14 @@ def main() -> int:
     from birda_tpu_torch.native import audio as native_audio
     from birda_tpu_torch.onnx import fullscale
     from birda_tpu_torch.onnx.lowering import lower
-    from birda_tpu_torch.ops import _build
+    from birda_tpu_torch.ops import _build, stft_conv
 
     dev = torch.device("cuda", 0)
     # The op case table (numpy and the port's encoder only).
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 
     # -- 1. card and kernel builds ----------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(smi, flush=True)
     t0 = time.perf_counter()
     _build.build_all()
@@ -2005,6 +2284,18 @@ def main() -> int:
             "main_path_region_v24", "fused_logmel", tmp, "birdnet-v24",
             onnx24, labels24_path, labels24, 48_000, softmax=False, dev=dev)
 
+        # -- 4b. the front-end routes, the kernel check, the parity tool,
+        # -- the acceptance rehearsal and the CLI, on v2.4 ----------------
+        stft_conv.LAUNCHES.clear()
+        launches_routes = kernel_routes_phase(dev)
+        verify, launches_verify = verify_kernels_phase(dev)
+        recorded, rows24, scores24, launches_parity = parity_phase(
+            fullscale.BIRDNET_V24_SPEC, onnx24, dev)
+        launches_accept = accept_phase(tmp, onnx24, labels24_path,
+                                       recorded, rows24, scores24)
+        del recorded
+        launches_cli = cli_phase(tmp, onnx24, labels24_path)
+
         # -- 5. the exact integer routes at the quantized nodes' shapes ----
         cases, gemms = int8_cases(convs24, mms24, convs_perch)
         # A grouped conv deeper than the exact fp32 depth (33 · 33 = 1089):
@@ -2040,7 +2331,18 @@ def main() -> int:
                      launches_v30=launches_v30.get("fused_logmel", 0),
                      launches_seq=launches_seq.get("fused_logmel", 0),
                      launches_perch_qdq=launches_perch_qdq.get(
-                         "fused_logmel", 0)),
+                         "fused_logmel", 0),
+                     launches_routes=launches_routes.get("fused_logmel", 0),
+                     launches_verify=launches_verify.get("fused_logmel", 0),
+                     launches_parity=launches_parity.get("fused_logmel", 0),
+                     launches_accept=launches_accept.get("fused_logmel", 0),
+                     launches_cli=launches_cli.get("fused_logmel", 0),
+                     verify={name: {"q99_err": rec["logmel_q99_err"],
+                                    "frames_per_block": rec[
+                                        "frames_per_block"]["fused_logmel"],
+                                    "mel_passes": rec["mel_passes"],
+                                    **rec["fused_logmel"]}
+                             for name, rec in verify.items()}),
         kernel_entry("conv1d_stft", "birda_tpu_torch/csrc/conv1d_stft.cu",
                      "birda_tpu/ops/stft_conv.py:121",
                      launches_perch.get("conv1d_stft", 0),
@@ -2056,7 +2358,17 @@ def main() -> int:
                      launches_v30=launches_v30.get("conv1d_stft", 0),
                      launches_seq=launches_seq.get("conv1d_stft", 0),
                      launches_perch_qdq=launches_perch_qdq.get(
-                         "conv1d_stft", 0)),
+                         "conv1d_stft", 0),
+                     launches_routes=launches_routes.get("conv1d_stft", 0),
+                     launches_verify=launches_verify.get("conv1d_stft", 0),
+                     launches_parity=launches_parity.get("conv1d_stft", 0),
+                     launches_accept=launches_accept.get("conv1d_stft", 0),
+                     launches_cli=launches_cli.get("conv1d_stft", 0),
+                     verify={name: {"rel_err": rec["conv_rel_err"],
+                                    "frames_per_block": rec[
+                                        "frames_per_block"]["conv1d_stft"],
+                                    **rec["conv1d_stft"]}
+                             for name, rec in verify.items()}),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

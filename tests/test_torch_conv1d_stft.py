@@ -24,13 +24,28 @@ from torch_kernel_layout import span_frames, unswizzle
 REL_BOUND = 2e-2
 
 # (B, S, K, hop, C): the JAX kernel tests' v2.4 / v3.0 / Perch geometries
-# (S and C shrunk; the tiling depends on K and hop), and T below one tile.
+# (S and C shrunk; the tiling depends on K and hop), T below one tile, and
+# hops whose span of 128 frames a block cannot hold, which the kernel takes
+# in fewer frames per block (64 at hop 512 and 1024, 64 with rows of the
+# window alone where the hop is longer than it, 8 at an 8192 window).
 GEOMETRIES = [
     pytest.param(3, 20_000, 2048, 278, 66, id="v24-shape"),
     pytest.param(3, 20_000, 1024, 320, 34, id="v30-shape"),
     pytest.param(3, 20_000, 640, 320, 640, id="perch-frame-shape"),
     pytest.param(2, 6_000, 2048, 278, 40, id="short-t"),
+    pytest.param(2, 40_000, 2048, 512, 66, id="hop512-64-frames"),
+    pytest.param(2, 80_000, 1024, 1024, 34, id="hop1024-64-frames"),
+    pytest.param(2, 200_000, 640, 2560, 40, id="hop-past-window"),
+    pytest.param(1, 90_000, 8192, 8192, 8, id="window8192-8-frames"),
 ]
+
+
+def test_frames_per_block_at_the_wide_geometries():
+    """The frames per block these cases take: what the layout test below
+    walks, and what the card runs."""
+    assert [stft_conv.conv1d_frames(h, k) for k, h in (
+        (2048, 278), (640, 320), (2048, 512), (1024, 1024), (640, 2560),
+        (8192, 8192))] == [128, 128, 64, 64, 64, 8]
 
 
 def _case(b, s, k, c, seed=0):
@@ -123,7 +138,8 @@ def test_kernel_layout_reproduces_plain_version(monkeypatch, b, s, k, hop,
 
     t = (s - k) // hop + 1
     frames = span_frames(_bf16(x).astype(np.float64), hop, k,
-                         n_kc * tile_k, t)  # [B, T, Kp]
+                         n_kc * tile_k, t,
+                         stft_conv.conv1d_frames(hop, k))  # [B, T, Kp]
     wimg = unswizzle(layout.w.double().numpy())  # [n_ct, n_kc, Cp, Kp]
     out = np.concatenate([
         sum(frames[..., j * tile_k:(j + 1) * tile_k] @ wimg[ct, j].T

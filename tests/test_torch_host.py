@@ -32,12 +32,16 @@ from birda_tpu_torch.onnx import fullscale as port_fullscale
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("birda_tpu", "jax", "jaxlib", "flax")
 #: The test helpers ``chip_smoke.py`` imports on the card's machine, which
-#: has no jax: the op case table and the spectrogram-transformer graph.
-CHIP_HELPERS = ["tests/torch_op_cases.py", "tests/torch_seq_graphs.py"]
+#: has no jax: the op case table, the spectrogram-transformer graph and the
+#: front-end route graphs.
+CHIP_HELPERS = ["tests/torch_op_cases.py", "tests/torch_seq_graphs.py",
+                "tests/torch_route_graphs.py"]
+#: The port's tools, run on the card's machine.
+TOOLS = ["scripts/torch_accept_asset.py", "scripts/verify_kernels_cuda.py"]
 PORT_SOURCES = sorted(
     str(p.relative_to(REPO))
     for p in (REPO / "birda_tpu_torch").rglob("*.py")) + ["chip_smoke.py"] \
-    + CHIP_HELPERS
+    + CHIP_HELPERS + TOOLS
 
 
 def _imported_roots(path: Path) -> list[tuple[int, str]]:
@@ -83,6 +87,22 @@ def test_import_scan_covers_every_helper_chip_smoke_imports():
         REPO / "chip_smoke.py") if (REPO / "tests" / f"{mod}.py").exists()}
     assert helpers == set(CHIP_HELPERS)
     assert set(CHIP_HELPERS) <= set(PORT_SOURCES)
+
+
+def test_import_scan_covers_the_tools():
+    assert set(TOOLS) <= set(PORT_SOURCES)
+    for rel in TOOLS:
+        assert (REPO / rel).exists()
+
+
+def test_every_jax_module_has_a_port_counterpart():
+    """The port has a module of the same subpackage and name for every
+    module of the JAX package."""
+    def tree(pkg):
+        return {str(p.relative_to(REPO / pkg))
+                for p in (REPO / pkg).rglob("*.py")}
+
+    assert tree("birda_tpu") - tree("birda_tpu_torch") == set()
 
 
 def test_import_scan_sees_imports_inside_functions(tmp_path):
@@ -384,6 +404,22 @@ HEAD_COPIES = ["config/bat.py", "config/geomodel.py", "cli/species.py",
                "registry/__init__.py", "registry/schema.py",
                "registry/loader.py", "registry/installer.py",
                "registry/registry.json", "locking/file_lock.py"]
+
+
+#: The host modules of ``config``, ``models``, ``clip``, ``update`` and
+#: ``api.clip``, copied as they are (their imports are relative).
+CLI_COPIES = ["audio/chunker.py", "cli/help.py", "registry/license.py",
+              "registry/cleanup.py", "update/__init__.py", "update/mod.py",
+              "clipper/__init__.py", "clipper/parser.py",
+              "clipper/grouper.py", "clipper/extractor.py",
+              "clipper/writer.py", "clipper/command.py"]
+
+
+@pytest.mark.parametrize("rel", CLI_COPIES)
+def test_cli_host_module_is_a_copy(rel):
+    assert (REPO / "birda_tpu_torch" / rel).read_bytes() == \
+        (REPO / "birda_tpu" / rel).read_bytes()
+    assert f"birda_tpu_torch/{rel}" in PORT_SOURCES
 
 
 def test_import_scan_covers_the_heads_modules():

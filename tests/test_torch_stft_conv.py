@@ -48,11 +48,24 @@ V24 = dict(n_fft=2048, hop=278, sample_rate=48_000,
 V30 = dict(n_fft=1024, hop=320, sample_rate=32_000,
            banks=((128, 50.0, 16_000.0),))
 
+# Front ends whose span of 128 frames a block cannot hold (hop 640 at K
+# 1280, hop 1024 at K 1024: 64 frames per block) and one wider than the
+# 256 mel columns of one pass of the register tiling (two 160-mel banks).
+HOP640 = dict(n_fft=1280, hop=640, sample_rate=32_000,
+              banks=((128, 50.0, 16_000.0),))
+HOP1024 = dict(n_fft=1024, hop=1024, sample_rate=32_000,
+               banks=((64, 50.0, 16_000.0),))
+MELS320 = dict(n_fft=1024, hop=320, sample_rate=32_000,
+               banks=((160, 0.0, 8000.0), (160, 500.0, 16_000.0)))
+
 # The release geometries with the real K, hop, bins and M; S shrunk.
 GEOMETRIES = [
     pytest.param(V24, 20_000, id="v24-shape"),
     pytest.param(V30, 20_000, id="v30-shape"),
     pytest.param(V24, 6_000, id="v24-t-below-one-tile"),
+    pytest.param(HOP640, 50_000, id="hop640-64-frames"),
+    pytest.param(HOP1024, 80_000, id="hop1024-64-frames"),
+    pytest.param(MELS320, 20_000, id="320-mels-two-passes"),
 ]
 
 
@@ -216,14 +229,17 @@ def test_kernel_layout_reproduces_plain_version(monkeypatch, geo, s):
     fbt = torch.from_numpy(fb).to(torch.bfloat16)
     layout = stft_conv.prepare_logmel_weights(wt, fbt)
     n_tiles, n_kc = layout.w.shape[:2]
-    mp = -(-fb.shape[1] // 32) * 32
+    passes, pass_mp = stft_conv.mel_passes(fb.shape[1])
+    mp = passes * pass_mp
+    assert (layout.passes, layout.pass_mp) == (passes, pass_mp)
     assert layout.w.shape == (n_tiles, n_kc, 2 * tile_bins, tile_k)
     assert layout.fb.shape == (n_tiles, mp, tile_bins)
 
     hop, k = geo["hop"], w.shape[1]
     t = (s - k) // hop + 1
     frames = span_frames(torch.from_numpy(x).to(torch.bfloat16).double()
-                         .numpy(), hop, k, n_kc * tile_k, t)
+                         .numpy(), hop, k, n_kc * tile_k, t,
+                         stft_conv.logmel_frames(hop, k))
     wimg = unswizzle(layout.w.double().numpy())    # [tiles, kc, 128, 64]
     fbimg = unswizzle(layout.fb.double().numpy())  # [tiles, mp, 64]
     mel = np.zeros((2, t, mp))
@@ -233,7 +249,10 @@ def test_kernel_layout_reproduces_plain_version(monkeypatch, geo, s):
         re, im = acc[..., :tile_bins], acc[..., tile_bins:]
         power = torch.from_numpy(re * re + im * im).float() \
             .to(torch.bfloat16).double().numpy()
-        mel += power @ fbimg[j].T
+        # Pass z projects onto columns z * pass_mp.. of the same image.
+        for z in range(passes):
+            cols = slice(z * pass_mp, (z + 1) * pass_mp)
+            mel[..., cols] += power @ fbimg[j, cols].T
     got = np.log(mel[..., :fb.shape[1]] + 1e-6)
     want = stft_conv.fused_logmel_reference(
         torch.from_numpy(x), wt, fbt, hop, 1e-6).float().numpy()
@@ -242,7 +261,7 @@ def test_kernel_layout_reproduces_plain_version(monkeypatch, geo, s):
     assert err.max() < MAX_BOUND
 
 
-@pytest.mark.parametrize("m", list(range(32, 257, 32)) + [1, 100])
+@pytest.mark.parametrize("m", list(range(32, 257, 32)) + [1, 100, 320, 600])
 @pytest.mark.parametrize("geo", [pytest.param(V24, id="v24"),
                                  pytest.param(V30, id="v30")])
 def test_swizzled_images_unswizzle_to_the_weights(monkeypatch, geo, m):
@@ -274,20 +293,27 @@ def test_swizzled_images_unswizzle_to_the_weights(monkeypatch, geo, m):
             assert np.array_equal(wimg[j, c, tb:], sin[rows, cols])
     fbp = np.zeros((n_tiles * tb, fbimg.shape[1]))
     fbp[:bins, :m] = fbt.double().numpy()
-    assert fbimg.shape[1] == -(-m // 32) * 32
+    passes, pass_mp = stft_conv.mel_passes(m)
+    assert fbimg.shape[1] == passes * pass_mp >= m
+    assert pass_mp % 32 == 0 and pass_mp <= stft_conv.MAX_PASS_MELS
+    assert (passes - 1) * pass_mp < m
     assert np.array_equal(fbimg.transpose(0, 2, 1).reshape(fbp.shape), fbp)
 
 
-@pytest.mark.parametrize("hop", [278, 320, 279, 161, 16, 17, 1024])
+@pytest.mark.parametrize("hop", [278, 320, 279, 161, 16, 17, 1024, 2048,
+                                 2224, 2561])
 def test_frame_cursor_reads_every_frame_sample(hop):
     """The consumers' address arithmetic (strided_window_gemm.cuh::
     FrameCursor: rewind, then step16 per 16-deep step) finds window
-    position k of frame r at r (hop + pad) + k + pad (k / hop) of the
+    position k of frame r at r (row + pad) + k + pad (k / hop) of the
     padded span, for both registers' window positions k and k + 8 of every
-    lane, and an even hop keeps each register's pair 4-byte aligned."""
-    pad = stft_conv.span_pad(hop)
-    assert pad % 2 == 0 and (hop % 2 or hop < 16 or (hop + pad) // 2 % 8 == 4)
+    lane, where row is the hop or, for a hop past the window, the window
+    alone; an even row keeps each register's pair 4-byte aligned."""
     k_pad = 2048
+    row = stft_conv.span_row(hop, k_pad)
+    pad = stft_conv.span_pad(row)
+    assert row == min(hop, k_pad)
+    assert pad % 2 == 0 and (row % 2 or row < 16 or (row + pad) // 2 % 8 == 4)
     for tq in range(4):
         ka, kb = 2 * tq, 2 * tq + 8
         ga = ka + (pad if ka >= hop else 0)
@@ -298,8 +324,9 @@ def test_frame_cursor_reads_every_frame_sample(hop):
             for k, g in ((ka, ga), (kb, gb)):
                 for r in (0, 8, 127):
                     q = r * hop + k
-                    want = (q // hop) * (hop + pad) + q % hop
-                    got = r * (hop + pad) + g
+                    assert q % hop < row  # a stored sample
+                    want = (q // hop) * (row + pad) + q % hop
+                    got = r * (row + pad) + g
                     if pad:  # the cursor assumes hop >= 16 when padding
                         assert got == want, (hop, tq, k, r)
                         assert got % 2 == 0
@@ -312,14 +339,22 @@ def test_frame_cursor_reads_every_frame_sample(hop):
 
 
 def test_span_budget_refuses_what_shared_memory_cannot_hold():
-    """The block's shared memory at the main paths' geometries, and the
-    typed refusal of a span that does not fit."""
+    """The block's shared memory at the main paths' geometries (128 frames
+    per block), fewer frames where 128 do not fit (hop 1024 at K 2048: 64),
+    and the typed refusal of a span that does not fit even one frame."""
     assert stft_conv.span_smem_bytes(278, 2048) < stft_conv.SMEM_LIMIT
     assert stft_conv.span_smem_bytes(
-        320, 640, stft_conv.CONV_STAGING_BYTES) < stft_conv.SMEM_LIMIT
-    stft_conv._check_span("fused_logmel", 278, 2048, 0)
+        320, 640, 2 * stft_conv.CONV_STAGING_BYTES) < stft_conv.SMEM_LIMIT
+    assert stft_conv._span_args("fused_logmel", 278, 2048,
+                                stft_conv.logmel_frames(278, 2048)) \
+        == (278, stft_conv.span_pad(278), 128)
+    assert stft_conv.span_smem_bytes(1024, 2048) > stft_conv.SMEM_LIMIT
+    assert stft_conv.logmel_frames(1024, 2048) == 64
+    assert stft_conv.span_smem_bytes(1024, 2048, 0, 64) \
+        <= stft_conv.SMEM_LIMIT
+    assert stft_conv.logmel_frames(90_000, 90_000) is None
     with pytest.raises(ValueError, match="shared memory"):
-        stft_conv._check_span("fused_logmel", 1024, 2048, 0)
+        stft_conv._span_args("fused_logmel", 90_000, 90_000, None)
 
 
 def test_wrapper_reads_float32_and_bf16_signals_alike():
@@ -336,14 +371,20 @@ def test_wrapper_reads_float32_and_bf16_signals_alike():
 
 
 def test_layout_refuses_mismatched_or_too_wide_banks(monkeypatch):
+    """A DFT weight whose rows are not twice the filterbank's bins, or a
+    filterbank of no mel column, is refused; a bank wider than one pass of
+    the register tiling is laid out in equal passes instead."""
     monkeypatch.setattr(stft_conv, "_tiles", lambda: TILES)
     with pytest.raises(ValueError, match="rows for"):
         stft_conv.prepare_logmel_weights(torch.zeros(10, 512),
                                          torch.zeros(6, 16))
-    with pytest.raises(ValueError, match="at most"):
-        stft_conv.prepare_logmel_weights(
-            torch.zeros(2 * 257, 512),
-            torch.zeros(257, stft_conv.MAX_MELS + 1))
+    with pytest.raises(ValueError, match="at least one mel"):
+        stft_conv.prepare_logmel_weights(torch.zeros(2 * 257, 512),
+                                         torch.zeros(257, 0))
+    wide = stft_conv.prepare_logmel_weights(
+        torch.zeros(2 * 257, 512),
+        torch.zeros(257, stft_conv.MAX_PASS_MELS + 1))
+    assert (wide.passes, wide.pass_mp) == (2, 160)
 
 
 @pytest.mark.slow

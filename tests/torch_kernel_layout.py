@@ -23,22 +23,27 @@ def unswizzle(a: np.ndarray) -> np.ndarray:
 def span_frames(x: np.ndarray, hop: int, k: int, k_pad: int, t: int,
                 tile_t: int = TILE_T) -> np.ndarray:
     """Frames ``[B, T, k_pad]`` as the kernel's consumers read them: each
-    frame tile's span stored in rows of ``hop`` samples padded by
-    ``span_pad(hop)``, zeros at and past S, window positions past K
-    masked. ``x`` is the bf16-rounded signal in float64."""
+    block's span of ``tile_t`` frames stored in rows of ``span_row(hop,
+    k_pad)`` samples, one per hop, padded by ``span_pad(row)``, zeros at
+    and past S, window positions past K masked; a sample no frame reads is
+    not stored (NaN here, so that reading one shows). ``x`` is the
+    bf16-rounded signal in float64."""
     b, s = x.shape
-    pad = stft_conv.span_pad(hop)
+    row = stft_conv.span_row(hop, k_pad)
+    pad = stft_conv.span_pad(row)
     rows = tile_t - 1 + -(-k_pad // hop)
     p = np.arange((tile_t - 1) * hop + k_pad)
-    where = (p // hop) * (hop + pad) + p % hop
+    p = p[p % hop < row]
+    where = (p // hop) * (row + pad) + p % hop
     out = np.zeros((b, t, k_pad))
     kk = np.arange(k_pad)
     for t0 in range(0, t, tile_t):
-        span = np.full((b, rows * (hop + pad)), np.nan)
+        span = np.full((b, rows * (row + pad)), np.nan)
         g = t0 * hop + p
         span[:, where] = np.where(g < s, x[:, np.minimum(g, s - 1)], 0.0)
         for r in range(min(tile_t, t - t0)):
             q = r * hop + kk
-            frame = span[:, (q // hop) * (hop + pad) + q % hop]
+            frame = span[:, (q // hop) * (row + pad) + q % hop]
             out[:, t0 + r] = np.where(kk < k, frame, 0.0)
+    assert not np.isnan(out).any()
     return out
