@@ -28,6 +28,13 @@
 // larger than shared memory; the host then picks the most frames per block
 // that fit, 64 or fewer (stft_conv.conv1d_frames), the second warpgroup
 // only keeps the ring turning, and only the first one stages its tile.
+//
+// A window whose one-frame span outgrows shared memory (from about 73,000
+// samples) streams the span in pieces of `kw` window samples instead
+// (STREAM; stft_conv.conv1d_layout picks kw): a block keeps 128 frames, and
+// for each piece its consumers load the samples of its real frames (those
+// before T) at t * hop + [k0, k0 + kw) between two named-barrier waits
+// (mma_window_streamed). Each N tile walks every piece again.
 
 #include "strided_window_gemm.cuh"
 
@@ -40,16 +47,19 @@ constexpr int O_LD = 64 + 8;  // bf16 staging row [c][t], padded for banks
 // One consumer warpgroup's staged tile.
 constexpr size_t STAGING_BYTES = TILE_N * O_LD * 2;
 
-// ODD: odd hop (A registers packed from two 2-byte loads).
-template <bool ODD>
+// ODD: odd row (A registers packed from two 2-byte loads). STREAM: the
+// span is streamed in pieces of kw window samples (else kw is the padded
+// window and the span is loaded once).
+template <bool ODD, bool STREAM>
 __global__ void __launch_bounds__(THREADS, 1)
 conv1d_stft_kernel(const void* __restrict__ x, int x_f32,
                    const __nv_bfloat16* __restrict__ wp,
                    __nv_bfloat16* __restrict__ out, int S, int hop, int row,
-                   int pad, int tf, int K, int T, int C, int n_ct, int n_kc) {
+                   int pad, int tf, int K, int T, int C, int n_ct, int n_kc,
+                   int kw) {
   extern __shared__ uint8_t smem_raw[];
   const int kp = n_kc * TILE_K;
-  const Smem sm(smem_raw, hop, row, pad, kp, tf);
+  const Smem sm(smem_raw, hop, row, pad, STREAM ? kw : kp, tf);
   init_barriers(sm);
 
   if (warpgroup() == PRODUCER_WG) {
@@ -72,17 +82,27 @@ conv1d_stft_kernel(const void* __restrict__ x, int x_f32,
     const int lane = tid & 31;
     const int t0 = blockIdx.x * tf;
     const int b = blockIdx.y;
-    load_span(sm.span, x, x_f32 != 0, b, S, t0 * hop, (tf - 1) * hop + kp,
-              hop, row, pad, tid);
-    named_bar_sync(1, CONSUMER_THREADS);
+    if (!STREAM) {
+      load_span(sm.span, x, x_f32 != 0, b, S, t0 * hop,
+                (tf - 1) * hop + kp, hop, row, pad, tid);
+      named_bar_sync(1, CONSUMER_THREADS);
+    }
 
     RingPos pos;
-    if (wg * 64 >= tf) {  // no frames of its own (tf <= 64)
+    if (wg * 64 >= tf) {  // no frames of its own (tf <= 64, never STREAM)
       skip_stages(sm, pos, n_ct * n_kc);
       return;
     }
-    FrameCursor<ODD> fc(sm.span, wg * 64 + warp * 16 + (lane >> 2), tf - 1,
+    // A streamed piece holds the block's real frames only: the rows past
+    // them read the last real one.
+    const int last = STREAM ? min(tf, T - t0) - 1 : tf - 1;
+    FrameCursor<ODD> fc(sm.span, wg * 64 + warp * 16 + (lane >> 2), last,
                         hop, row, pad, K);
+    const int piece_rows = span_rows(hop, kw, last + 1);
+    auto load = [&](int k0) {
+      load_piece(sm.span, x, x_f32 != 0, b, S, t0 * hop + k0, piece_rows,
+                 hop, row, pad, tid);
+    };
     __nv_bfloat16* stage =
         reinterpret_cast<__nv_bfloat16*>(sm.extra) + wg * TILE_N * O_LD;
     const int t_base = t0 + wg * 64;
@@ -92,7 +112,11 @@ conv1d_stft_kernel(const void* __restrict__ x, int x_f32,
 
     for (int j = 0; j < n_ct; ++j) {
       float acc[64];
-      mma_window(acc, fc, sm, pos, n_kc);
+      if (STREAM) {
+        mma_window_streamed(acc, fc, sm, pos, n_kc, kw / TILE_K, K, load);
+      } else {
+        mma_window(acc, fc, sm, pos, n_kc);
+      }
 
       // Register i is frame row 16 warp + lane/4 + 8 ((i/2) % 2), channel
       // 8 (i/4) + 2 (lane % 4) + i % 2 of the tile: staged as [c][t].
@@ -121,25 +145,25 @@ conv1d_stft_kernel(const void* __restrict__ x, int x_f32,
   }
 }
 
-template <bool ODD>
+template <bool ODD, bool STREAM>
 int launch(const void* x, int x_f32, const void* wp, void* out, int batch,
            int S, int hop, int row, int pad, int tf, int K, int T, int C,
-           int n_ct, int n_kc, cudaStream_t stream) {
+           int n_ct, int n_kc, int kw, cudaStream_t stream) {
   const int kp = n_kc * TILE_K;
-  const size_t smem = smem_bytes(hop, row, pad, kp, tf,
+  const size_t smem = smem_bytes(hop, row, pad, kw, tf,
                                  (tf > 64 ? 2 : 1) * STAGING_BYTES);
-  if (!span_args_ok(hop, row, pad, kp, tf) || smem > SMEM_LIMIT) {
+  if (!stream_args_ok(hop, row, pad, kp, kw, tf) || smem > SMEM_LIMIT) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaFuncSetAttribute(
-      conv1d_stft_kernel<ODD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      conv1d_stft_kernel<ODD, STREAM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((T + tf - 1) / tf, batch);
-  conv1d_stft_kernel<ODD><<<grid, THREADS, smem, stream>>>(
+  conv1d_stft_kernel<ODD, STREAM><<<grid, THREADS, smem, stream>>>(
       x, x_f32, static_cast<const __nv_bfloat16*>(wp),
       static_cast<__nv_bfloat16*>(out), S, hop, row, pad, tf, K, T, C, n_ct,
-      n_kc);
+      n_kc, kw);
   return (int)cudaGetLastError();
 }
 
@@ -154,20 +178,30 @@ int birda_conv1d_stft_tile_k() { return TILE_K; }
 
 // x: [batch, S] float32 (x_f32 = 1) or bf16, contiguous; wp: [n_ct, n_kc,
 // TILE_N, TILE_K] bf16, each chunk a 128-B swizzled image; out: [batch, C,
-// T] bf16. row: the span's row length, min(hop, n_kc * TILE_K); pad: its
+// T] bf16. kw: window samples the span holds, n_kc * TILE_K (the whole
+// window, loaded once) or fewer, a whole number of chunks (streamed in
+// pieces, with tf 128); row: the span's row length, min(hop, kw); pad: its
 // row padding (0 for an odd row); tf: frames per block, a power of two up
 // to 128.
 // Returns cudaGetLastError() after the launch (0 = launched).
 int birda_conv1d_stft(const void* x, int x_f32, const void* wp, void* out,
                       int batch, int S, int hop, int row, int pad, int tf,
-                      int K, int T, int C, int n_ct, int n_kc, void* stream) {
+                      int K, int T, int C, int n_ct, int n_kc, int kw,
+                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool stream_span = kw < n_kc * TILE_K;
   if (row & 1) {
-    return launch<true>(x, x_f32, wp, out, batch, S, hop, row, pad, tf, K, T,
-                        C, n_ct, n_kc, s);
+    return stream_span
+               ? launch<true, true>(x, x_f32, wp, out, batch, S, hop, row,
+                                    pad, tf, K, T, C, n_ct, n_kc, kw, s)
+               : launch<true, false>(x, x_f32, wp, out, batch, S, hop, row,
+                                     pad, tf, K, T, C, n_ct, n_kc, kw, s);
   }
-  return launch<false>(x, x_f32, wp, out, batch, S, hop, row, pad, tf, K, T,
-                       C, n_ct, n_kc, s);
+  return stream_span
+             ? launch<false, true>(x, x_f32, wp, out, batch, S, hop, row, pad,
+                                   tf, K, T, C, n_ct, n_kc, kw, s)
+             : launch<false, false>(x, x_f32, wp, out, batch, S, hop, row,
+                                    pad, tf, K, T, C, n_ct, n_kc, kw, s);
 }
 
 }  // extern "C"

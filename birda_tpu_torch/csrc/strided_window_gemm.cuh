@@ -28,6 +28,13 @@
 //    descriptor reads (prepare_*_weights in ops/stft_conv.py), so one 1-D
 //    bulk copy moves it; no tensor map is needed. One producer warp keeps
 //    a ring of STAGES chunks in flight, signalled by full/empty mbarriers.
+//  - A window too long for the span of even one frame in shared memory
+//    (about 73,000 samples) streams the span in pieces along K instead
+//    (conv1d_stft.cu only): a block of 128 frames holds the samples its
+//    frames read at window positions [k0, k0 + kw), kw a whole number of
+//    chunks, in the same rows of min(hop, kw) samples, and before each
+//    piece every consumer waits until all have read the last one
+//    (mma_window_streamed, load_piece).
 //  - Two consumer warpgroups each take 64 of the 128 frames and issue
 //    wgmma.mma_async m64n128k16 (bf16 operands, fp32 accumulators in
 //    registers); setmaxnreg moves registers from the producer to them.
@@ -92,6 +99,17 @@ __host__ inline bool span_args_ok(int hop, int row, int pad, int kp,
   const bool tf_ok = tf >= 1 && tf <= TILE_T && (tf & (tf - 1)) == 0;
   const int want_row = hop < kp ? hop : kp;
   return tf_ok && row == want_row && pad >= 0 && (pad & 1) == 0 &&
+         ((row & 1) == 0 || pad == 0);
+}
+
+// The same for a span streamed in pieces of kw window samples (kw < kp, a
+// whole number of chunks): a block of TILE_T frames, rows of min(hop, kw).
+__host__ inline bool stream_args_ok(int hop, int row, int pad, int kp,
+                                    int kw, int tf) {
+  if (kw == kp) return span_args_ok(hop, row, pad, kp, tf);
+  const int want_row = hop < kw ? hop : kw;
+  return tf == TILE_T && kw > 0 && kw < kp && kw % TILE_K == 0 &&
+         row == want_row && pad >= 0 && (pad & 1) == 0 &&
          ((row & 1) == 0 || pad == 0);
 }
 
@@ -422,6 +440,54 @@ __device__ __forceinline__ void load_span(__nv_bfloat16* span, const void* x,
   }
 }
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// One piece of a streamed span: rows j < `rows`, each the `row` samples of
+// signal `sig` (length S) at g0 + j * hop, bf16, zeros at and past S, row j
+// at j * (row + pad). Only the samples some frame reads at the piece's
+// window positions are loaded (at a hop past the piece, the rows are apart).
+template <typename IN>
+__device__ void load_piece_typed(__nv_bfloat16* span, const IN* sig, int S,
+                                 int g0, int rows, int hop, int row, int pad,
+                                 int tid) {
+  const int n = rows * row;
+  constexpr int LOADS = 8;  // loads in flight per thread, as in load_span
+  for (int e0 = tid; e0 < n; e0 += LOADS * CONSUMER_THREADS) {
+    float v[LOADS];
+#pragma unroll
+    for (int i = 0; i < LOADS; ++i) {
+      const int e = e0 + i * CONSUMER_THREADS;
+      const int j = e / row;
+      const int g = g0 + j * hop + (e - j * row);
+      v[i] = (e < n && g < S) ? to_f32(__ldg(sig + g)) : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < LOADS; ++i) {
+      const int e = e0 + i * CONSUMER_THREADS;
+      if (e >= n) break;
+      const int j = e / row;
+      span[j * (row + pad) + (e - j * row)] = __float2bfloat16_rn(v[i]);
+    }
+  }
+}
+
+__device__ __forceinline__ void load_piece(__nv_bfloat16* span, const void* x,
+                                           bool x_f32, int b, int S, int g0,
+                                           int rows, int hop, int row,
+                                           int pad, int tid) {
+  if (x_f32) {
+    load_piece_typed(span, static_cast<const float*>(x) + (size_t)b * S, S,
+                     g0, rows, hop, row, pad, tid);
+  } else {
+    load_piece_typed(span,
+                     static_cast<const __nv_bfloat16*>(x) + (size_t)b * S, S,
+                     g0, rows, hop, row, pad, tid);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Frames as the A operand
 // ---------------------------------------------------------------------------
@@ -435,6 +501,8 @@ template <bool ODD>
 struct FrameCursor {
   const __nv_bfloat16* span;
   int row0, row8;  // element offsets of the two frames' starts
+  // K: window positions left from the span's first one (a streamed piece
+  // sets it to K - k0).
   int hop, pad, K;
   // Window position of register pairs {k} and {k+8}, their offsets in the
   // padded span (k + pad * (k / hop): a window crosses a row boundary only
@@ -508,6 +576,26 @@ struct FrameCursor {
   }
 };
 
+// acc[64 x 128] (+)= the frames' A registers `a` of one TILE_K chunk x the
+// ring stage at `pos` (acc is overwritten where `first`); on return the
+// wgmma work is complete and the stage released.
+__device__ __forceinline__ void mma_chunk(float (&acc)[64], uint32_t (&a)[16],
+                                          const Smem& sm, RingPos& pos,
+                                          bool first) {
+  const uint64_t desc = desc_sw128(consume_wait(sm, pos));
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < TILE_K / 16; ++s) {
+    wgmma_n128(acc, &a[4 * s], desc + 2 * s, !first || s > 0);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(acc);
+  fence_regs(a);
+  consume_release(sm, pos);
+}
+
 // acc[64 x 128] = frames[64, K] x chunk images, over n_kc ring stages. On
 // return every stage is released and the wgmma work is complete. Each chunk
 // is waited for before the next one's frames are loaded: the other consumer
@@ -524,18 +612,35 @@ __device__ __forceinline__ void mma_window(float (&acc)[64],
   for (int c = 0; c < n_kc; ++c) {
     uint32_t a[16];
     fc.load_chunk(a, ragged && c == n_kc - 1);
-    const uint64_t desc = desc_sw128(consume_wait(sm, pos));
-    fence_regs(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int s = 0; s < TILE_K / 16; ++s) {
-      wgmma_n128(acc, &a[4 * s], desc + 2 * s, c > 0 || s > 0);
+    mma_chunk(acc, a, sm, pos, c == 0);
+  }
+}
+
+// mma_window over a span streamed in pieces of piece_kc chunks. Before each
+// piece every consumer thread waits on named barrier 1 until all have read
+// the last one; then `load(k0)` fills the span with the piece at window
+// position k0, and they wait again until it is complete. Both consumer
+// warpgroups must call it.
+template <bool ODD, typename LOAD>
+__device__ __forceinline__ void mma_window_streamed(float (&acc)[64],
+                                                    FrameCursor<ODD>& fc,
+                                                    const Smem& sm,
+                                                    RingPos& pos, int n_kc,
+                                                    int piece_kc, int K,
+                                                    LOAD&& load) {
+  const bool ragged = (K % TILE_K) != 0;
+  for (int c0 = 0; c0 < n_kc; c0 += piece_kc) {
+    named_bar_sync(1, CONSUMER_THREADS);
+    load(c0 * TILE_K);
+    named_bar_sync(1, CONSUMER_THREADS);
+    fc.K = K - c0 * TILE_K;
+    fc.rewind();
+    const int n = min(piece_kc, n_kc - c0);
+    for (int c = 0; c < n; ++c) {
+      uint32_t a[16];
+      fc.load_chunk(a, ragged && c0 + c == n_kc - 1);
+      mma_chunk(acc, a, sm, pos, c0 + c == 0);
     }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(acc);
-    fence_regs(a);
-    consume_release(sm, pos);
   }
 }
 

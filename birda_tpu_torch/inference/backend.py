@@ -20,7 +20,8 @@ import torch
 from ..errors import RuntimeInitialization
 
 __all__ = ["AUTO", "CPU", "CUDA", "BackendStatus", "available_backends",
-           "card_line", "provider_metadata", "select_backend"]
+           "card_line", "ensure_runtime_available", "provider_metadata",
+           "select_backend"]
 
 CUDA = "cuda"
 CPU = "cpu"
@@ -67,6 +68,19 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def ensure_runtime_available(requested: str = AUTO) -> None:
+    """Fail fast with :class:`RuntimeInitialization` when torch cannot
+    initialize the runtime ``requested`` needs: for ``auto`` (the default,
+    which means ``cuda:0``), ``cuda`` or ``gpu``, the CUDA runtime, a first
+    card and one allocation on it; for ``cpu``, one allocation on the
+    CPU."""
+    device = select_backend(requested)[0][0]
+    try:
+        torch.zeros(1, device=device)
+    except Exception as e:  # noqa: BLE001 — any runtime failure is fatal
+        raise RuntimeInitialization(str(e)) from e
 
 
 def select_backend(requested: str = AUTO

@@ -158,6 +158,9 @@ class BirdClassifier:
     def sample_count(self) -> int:
         return self.model.config.sample_count
 
+    def execution_provider_status(self) -> BackendStatus:
+        return self.backend_status
+
     def range_filter_info(self) -> Optional[dict]:
         """Geomodel coverage record for the JSON protocol."""
         if self.range_filter_data is None:
@@ -251,6 +254,12 @@ class BirdClassifier:
         except Exception as e:  # noqa: BLE001
             raise InferenceErr(str(e)) from e
         return _decode(self.labels, out, segments.shape[0], options)
+
+    def predict(self, segment: np.ndarray,
+                options: Optional[InferenceOptions] = None
+                ) -> PredictionResult:
+        """One ``[sample_count]`` segment through :meth:`predict_batch`."""
+        return self.predict_batch(segment[None, :], options)[0]
 
     # -- chunked streaming path ---------------------------------------------
 

@@ -47,9 +47,10 @@ hand-written CUDA kernels carry the front-ends: the fused node runs
 the fusion pass did not take (the unfused Conv1d-STFT, Perch v2's framing
 conv) runs ``ops/stft_conv.py::conv1d_stft``, each where its kernel holds
 the node's geometry (``conv1d_kernel_fits``, ``logmel_kernel_fits``, from
-static shapes on every device); any other geometry runs the JAX
-evaluator's composed route for that node, and ``stft_conv.ROUTES`` counts
-which route each node took. A graph outside the op set fails at load with
+static shapes on every device); any other geometry, and every front-end
+node under ``BIRDA_STFT_KERNEL=gather``, runs the JAX evaluator's composed
+route for that node, and ``stft_conv.ROUTES`` counts which route each node
+took. A graph outside the op set fails at load with
 the full list (``preflight_or_raise``).
 """
 
@@ -1769,10 +1770,12 @@ class _Evaluator:
             # stride: the unfused windowed DFT, Perch v2's framer).
             k, hop = w.shape[2], strides[0]
             if self.compute_dtype == torch.bfloat16:
-                if not stft_conv.conv1d_kernel_fits(x.shape[2], k, hop,
-                                                    w.shape[0]):
-                    # A geometry the kernel cannot hold: the JAX package's
-                    # composed route, decided from shapes alone.
+                if not (stft_conv.kernel_requested()
+                        and stft_conv.conv1d_kernel_fits(x.shape[2], k, hop,
+                                                         w.shape[0])):
+                    # BIRDA_STFT_KERNEL=gather, or a geometry the kernel
+                    # does not take: the JAX package's composed route,
+                    # decided from shapes alone.
                     stft_conv.count_route("conv1d_stft", "composed")
                     return self._conv1d_composed(dev, x, w, b, hop)
                 # The hand-written kernel (bf16 operands, fp32 sums, bf16
@@ -1832,9 +1835,12 @@ class _Evaluator:
             sig = sig[:, 0, :]
         wm = self._tensor(w, dev)[:, 0, :]
         (c, k), m = wm.shape, np.shape(fb)[1]
-        if not stft_conv.logmel_kernel_fits(sig.shape[-1], k, hop, c, m):
-            # A geometry the kernel cannot hold: the JAX package's composed
-            # route, decided from shapes alone.
+        if not (stft_conv.kernel_requested()
+                and stft_conv.logmel_kernel_fits(sig.shape[-1], k, hop, c,
+                                                 m)):
+            # BIRDA_STFT_KERNEL=gather, or a geometry the kernel cannot
+            # hold: the JAX package's composed route, decided from shapes
+            # alone.
             stft_conv.count_route("fused_logmel", "composed")
             return self._logmel_composed(dev, sig, wm, fb, hop, eps)
         stft_conv.count_route("fused_logmel", "kernel")
@@ -3938,6 +3944,10 @@ class OnnxFunction:
                         and arr.nbytes >= LIFT_PARAM_BYTES):
                     self.params[name] = arr
                     self._eval.lifted_params.add(name)
+
+    def input_info(self):
+        """The graph's value infos of its fed (non-initializer) inputs."""
+        return [vi for vi in self.graph.inputs if vi.name in self.input_names]
 
     def prepare(self, params: dict[str, torch.Tensor]) -> None:
         """Lay out the weights of every front-end that runs a CUDA kernel

@@ -212,6 +212,13 @@ def _device_fn_blocked(from_rate: int, to_rate: int, in_len: int):
     return fn
 
 
+def device_resample_supported(from_rate: int, to_rate: int) -> bool:
+    """Every rational ratio runs on the device (the blocked form covers
+    large L/M like 44.1 kHz's 160/147), as in the JAX module."""
+    del from_rate, to_rate
+    return True
+
+
 def resample_device(x: torch.Tensor, from_rate: int, to_rate: int
                     ) -> torch.Tensor:
     """Resample ``[batch, N]`` float32 on ``x``'s device."""

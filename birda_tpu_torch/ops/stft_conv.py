@@ -27,6 +27,7 @@ weight, not per call.
 from __future__ import annotations
 
 import ctypes
+import os
 import threading
 from collections import Counter
 from dataclasses import dataclass
@@ -42,9 +43,23 @@ _launches_lock = threading.Lock()  # --jobs workers launch concurrently
 #: The route each front-end node took, by ``"<kernel>:kernel"`` or
 #: ``"<kernel>:composed"``, counted by the evaluator once per node call on
 #: every device: decided from static shapes alone
-#: (:func:`conv1d_kernel_fits`, :func:`logmel_kernel_fits`), so a CPU run
-#: reports the route the card would take.
+#: (:func:`conv1d_kernel_fits`, :func:`logmel_kernel_fits`) and
+#: :data:`KERNEL_ENV`, so a CPU run reports the route the card would take.
 ROUTES: Counter = Counter()
+
+
+#: The JAX package's switch of its front-end kernels
+#: (``birda_tpu/ops/stft_conv.py::kernel_enabled``): ``gather`` asks for the
+#: composed route; ``auto`` (the default) and ``pallas`` take the kernel
+#: wherever it holds the geometry (on the CPU, its plain version).
+KERNEL_ENV = "BIRDA_STFT_KERNEL"
+
+
+def kernel_requested() -> bool:
+    """False where ``BIRDA_STFT_KERNEL=gather`` asks for the composed
+    route of every front-end node, on every device. Read per node call, as
+    the JAX package reads it."""
+    return os.environ.get(KERNEL_ENV, "auto") != "gather"
 
 
 def _count_launch(name: str) -> None:
@@ -68,7 +83,7 @@ _SIGNATURES = {
                      + [ctypes.c_int] * 13
                      + [ctypes.c_float, ctypes.c_void_p]),
     "conv1d_stft": ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
-                    + [ctypes.c_int] * 11 + [ctypes.c_void_p]),
+                    + [ctypes.c_int] * 12 + [ctypes.c_void_p]),
 }
 
 #: csrc/strided_window_gemm.cuh: ring stages of one 16 KB weight chunk
@@ -87,6 +102,14 @@ TILE_K = 64
 #: the last frame) where the span of more frames does not fit shared
 #: memory.
 FRAME_BLOCKS = (128, 64, 32, 16, 8, 4, 2, 1)
+#: Frames per block of the Conv1d-STFT kernel where it streams the span in
+#: pieces along the window (:func:`conv1d_layout`).
+STREAM_FRAMES = 128
+#: The JAX package's Pallas kernel's frames per program and VMEM budget
+#: (``birda_tpu/ops/stft_conv.py::enabled``), which :func:`pallas_budget`
+#: copies.
+PALLAS_TILE_T = 128
+PALLAS_VMEM_BUDGET = 13 * 2**20
 
 
 def _lib(name: str):
@@ -189,6 +212,51 @@ def logmel_frames(hop: int, k: int) -> int | None:
     return _frames(hop, k, 0)
 
 
+def pallas_budget(s: int, k: int, hop: int, c: int) -> bool:
+    """Whether the JAX package's Conv1d-STFT Pallas kernel holds ``[B, s]
+    x [c, k]`` at ``hop`` in its VMEM budget (the arithmetic of
+    ``birda_tpu/ops/stft_conv.py::enabled``): the resident weight slabs,
+    two signal rows and two accumulator tiles under 13 MiB."""
+    nblk = -(-k // hop)
+    w_bytes = nblk * hop * c * 2
+    row_bytes = (s + (nblk + PALLAS_TILE_T) * hop) * 2
+    acc_bytes = PALLAS_TILE_T * c * 4 + PALLAS_TILE_T * c * 2
+    return w_bytes + 2 * row_bytes + 2 * acc_bytes < PALLAS_VMEM_BUDGET
+
+
+def conv1d_piece(hop: int, k: int) -> int:
+    """Window samples per piece where :func:`conv1d_stft`'s kernel streams
+    the span: the most whole chunks of :data:`TILE_K` (fewer than the padded
+    window) whose span of :data:`STREAM_FRAMES` frames, with both consumer
+    warpgroups' output staging, fits a block's shared memory."""
+    lo, hi = 1, -(-k // TILE_K) - 1  # chunks; the answer lies in [lo, hi]
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if span_smem_bytes(hop, mid * TILE_K, 2 * CONV_STAGING_BYTES,
+                           STREAM_FRAMES) <= SMEM_LIMIT:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo * TILE_K
+
+
+def conv1d_layout(s: int, k: int, hop: int, c: int
+                  ) -> tuple[int, int] | None:
+    """(frames per block, window samples the span holds) of
+    :func:`conv1d_stft`'s kernel at ``[B, s] x [c, k]`` and ``hop``: the
+    whole padded window's span of :func:`conv1d_frames` frames where it
+    fits; else, where the JAX package's Pallas kernel holds the geometry
+    (:func:`pallas_budget`), a span of :data:`STREAM_FRAMES` frames
+    streamed in pieces of :func:`conv1d_piece` samples; else None (the
+    JAX package's composed route)."""
+    frames = conv1d_frames(hop, k)
+    if frames is not None:
+        return frames, -(-k // TILE_K) * TILE_K
+    if pallas_budget(s, k, hop, c):
+        return STREAM_FRAMES, conv1d_piece(hop, k)
+    return None
+
+
 def mel_passes(m: int) -> tuple[int, int]:
     """(passes, padded mel width of one pass) of :func:`fused_logmel`'s
     kernel for ``m`` mel outputs: equal column ranges of at most
@@ -199,13 +267,14 @@ def mel_passes(m: int) -> tuple[int, int]:
 
 
 def conv1d_kernel_fits(s: int, k: int, hop: int, c: int) -> bool:
-    """Whether :func:`conv1d_stft`'s kernel holds ``[B, s] x [c, k]`` at
-    ``hop``: a window no longer than the signal, and the span of at least
-    one frame with its output staging within a block's shared memory (the
-    check the wrapper raises on: a window of up to about 73,000 samples);
-    any ``c``, which the kernel tiles. Static: the same answer on every
-    device."""
-    return s >= k and conv1d_frames(hop, k) is not None
+    """Whether :func:`conv1d_stft`'s kernel takes ``[B, s] x [c, k]`` at
+    ``hop``: a window no longer than the signal, and either the span of at
+    least one frame with its output staging within a block's shared memory
+    (a window of up to about 73,000 samples) or the JAX package's Pallas
+    budget holding, where the kernel streams the span in pieces
+    (:func:`conv1d_layout`, the check the wrapper raises on); any ``c``,
+    which the kernel tiles. Static: the same answer on every device."""
+    return s >= k and conv1d_layout(s, k, hop, c) is not None
 
 
 def logmel_kernel_fits(s: int, k: int, hop: int, c: int, m: int) -> bool:
@@ -218,16 +287,19 @@ def logmel_kernel_fits(s: int, k: int, hop: int, c: int, m: int) -> bool:
     return s >= k and logmel_frames(hop, k) is not None
 
 
-def _span_args(name: str, hop: int, k: int, frames: int | None
-               ) -> tuple[int, int, int]:
-    """(row, pad, frames) of a launch, or the refusal of a span no block
-    holds."""
+def _span_args(name: str, hop: int, k: int, frames: int | None,
+               piece: int | None = None) -> tuple[int, int, int]:
+    """(row, pad, frames) of a launch whose span holds ``piece`` window
+    samples (the whole padded window by default), or the refusal of a span
+    no block holds."""
     if frames is None:
         raise ValueError(
             f"{name}: the signal span of one frame at hop {hop} and a "
             f"{k}-sample window needs more than the "
             f"{SMEM_LIMIT} bytes of shared memory a block may use")
-    row = span_row(hop, -(-k // TILE_K) * TILE_K)
+    if piece is None:
+        piece = -(-k // TILE_K) * TILE_K
+    row = span_row(hop, piece)
     return row, span_pad(row), frames
 
 
@@ -436,8 +508,8 @@ def conv1d_stft(x: torch.Tensor, w: torch.Tensor, hop: int,
         raise ValueError(f"conv1d_stft: signal of {s} samples is shorter "
                          f"than the {k}-sample window")
     n_c_tiles, n_kc = prepared.w.shape[0], prepared.w.shape[1]
-    row, pad, frames = _span_args("conv1d_stft", hop, k,
-                                  conv1d_frames(hop, k))
+    frames, piece = conv1d_layout(s, k, hop, c) or (None, None)
+    row, pad, frames = _span_args("conv1d_stft", hop, k, frames, piece)
     t = (s - k) // hop + 1
     with torch.cuda.device(x.device):
         out = torch.empty((b, c, t), dtype=torch.bfloat16, device=x.device)
@@ -445,7 +517,7 @@ def conv1d_stft(x: torch.Tensor, w: torch.Tensor, hop: int,
         rc = _lib("conv1d_stft").birda_conv1d_stft(
             x.data_ptr(), int(x.dtype == torch.float32),
             prepared.w.data_ptr(), out.data_ptr(), b, s, hop, row, pad,
-            frames, k, t, c, n_c_tiles, n_kc, stream)
+            frames, k, t, c, n_c_tiles, n_kc, piece, stream)
     if rc != 0:
         raise RuntimeError(f"conv1d_stft kernel launch failed: CUDA error "
                            f"{rc}")

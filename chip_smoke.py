@@ -61,17 +61,24 @@ time step).
 Then the tools and the rest of the command line, on v2.4: ``kernel_routes``
 (each geometry of ``tests/torch_route_graphs.py`` through ``lower`` in bf16
 against the port's CPU run: the shipped and the wide front ends on their
-kernels, one window past shared memory on the JAX package's composed
+kernels, an 80,000-sample window on ``conv1d_stft`` with its span streamed
+in pieces, one window past the JAX package's budget too on its composed
 route, none raising), ``verify_kernels`` (``scripts/verify_kernels_cuda.py``'s
 cases: both kernels at ``verify_kernels_tpu.py``'s three geometries and at
-the wide ones against float64, timed), ``parity_v24`` (``onnx/parity.py``'s
+the wide ones, and ``conv1d_stft`` at two long windows, against float64,
+timed), ``parity_v24`` (``onnx/parity.py``'s
 captures of the card's fp32 and bf16 runs of the full-scale graph walked
 against recordings of the port's CPU runs, and its walk naming a planted
 perturbation), ``accept_v24``
 (``scripts/torch_accept_asset.py`` with that recording as its reference)
 and ``cli_commands`` (the port's CLI in subprocesses: ``version``,
 ``providers``, ``config``, ``models add``/``check``/``list``, a bare-file
-``analyze`` in bf16 and ``clip`` on its CSV).
+``analyze`` in bf16 and ``clip`` on its CSV). Then ``stft_gather`` (the one
+phase that sets ``BIRDA_STFT_KERNEL``, to ``gather``: the v2.4 front end on
+its composed route with no kernel launch, against the CPU),
+``recall_report`` (``scripts/torch_int8_recall_report.py`` on 32 segments
+of a v2.4 recording, on ``cuda:0``) and ``host_budget``
+(``scripts/torch_bench_host_budget.py`` at batch 32 over 120 s).
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after, and must have launched its kernel (the native path: none). Each model's bf16, int8 and
@@ -1851,8 +1858,10 @@ def kernel_routes_phase(dev):
     (within 2e-2 of the largest magnitude): the shipped front ends and the
     wide ones (hop 512 and 1024 convs, a hop 640 and a 320-mel fused front
     end, in fewer frames per block or two mel passes) on their kernels, a
-    conv whose one window outgrows shared memory on the JAX package's
-    composed route, none raising. Returns the launch counts."""
+    conv of an 80,000-sample window on its kernel with the span streamed
+    in pieces, a conv whose one window outgrows both the kernel's shared
+    memory and the JAX package's VMEM budget on the JAX package's composed
+    route, none raising. Returns the launch counts."""
     import torch_route_graphs as rg
 
     from birda_tpu_torch.ops import stft_conv
@@ -1872,12 +1881,14 @@ def kernel_routes_phase(dev):
 def verify_kernels_phase(dev):
     """``scripts/verify_kernels_cuda.py``'s kernel cases: both kernels at
     ``verify_kernels_tpu.py``'s three geometries and at the wide ones
-    (fewer frames per block, two mel passes), batch 4, against float64
-    (conv max error over max |want| < 2e-2, log-mel q99 < 5e-2) and their
-    plain versions, timed. Returns the records and the checked calls'
-    launch counts."""
+    (fewer frames per block, two mel passes), and ``conv1d_stft`` at the
+    long windows whose span it streams in pieces (ROADMAP C9), batch 4,
+    against float64 (conv max error over max |want| < 2e-2, log-mel q99 <
+    5e-2) and their plain versions, timed. Returns the records of both
+    kernels, those of the long windows and the checked calls' launch
+    counts."""
     verify = _script("verify_kernels_cuda")
-    records, total = {}, {}
+    records, long_windows, total = {}, {}, {}
     for name, s, k, hop, mels in verify.STFT_CASES + verify.WIDE_CASES:
         rec = verify.stft_case(name, s, k, hop, mels, 4, dev)
         for kernel, n in rec["launches"].items():
@@ -1885,7 +1896,115 @@ def verify_kernels_phase(dev):
         emit({"phase": "verify_kernels", **rec})
         check(rec["ok"], f"verify_kernels {name}: {rec}")
         records[name] = rec
-    return records, total
+    for name, s, k, hop, c in verify.C9_CASES:
+        rec = verify.conv_case(name, s, k, hop, c, 4, dev)
+        total["conv1d_stft"] = total.get("conv1d_stft", 0) + rec["launches"]
+        emit({"phase": "verify_kernels", **rec})
+        check(rec["ok"], f"verify_kernels {name}: {rec}")
+        long_windows[name] = rec
+    return records, long_windows, total
+
+
+def stft_gather_phase(onnx_path, dev):
+    """``BIRDA_STFT_KERNEL=gather`` (the only phase that sets it) on
+    full-scale v2.4 in bf16, two rows: the fused front end takes the
+    composed route on the card and launches no front-end kernel, and its
+    scores agree with the CPU's run of the same route within the bf16
+    score bound; unset, the same function takes the kernel again (one
+    ``fused_logmel`` launch). Returns the gather run's launch counts."""
+    import torch
+
+    from birda_tpu_torch.models.zoo import params_from_numpy
+    from birda_tpu_torch.onnx import fullscale
+    from birda_tpu_torch.onnx.lowering import lower
+    from birda_tpu_torch.ops import stft_conv
+
+    spec = fullscale.BIRDNET_V24_SPEC
+    x = torch.from_numpy(recording(spec.sample_rate,
+                                   2 * spec.sample_count / spec.sample_rate,
+                                   SEED + 50).reshape(2, -1))
+    fn = lower(onnx_path.read_bytes(), compute_dtype=torch.bfloat16)
+    params = params_from_numpy(fn.params, dev, torch.bfloat16)
+    fn.prepare(params)
+
+    def run(device, p):
+        routes = dict(stft_conv.ROUTES)
+        stft_conv.LAUNCHES.clear()
+        with torch.inference_mode():
+            out = fn(x.to(device), params=p)
+        scores = (out[0] if isinstance(out, tuple) else out).float().cpu()
+        took = {k: v - routes.get(k, 0) for k, v in stft_conv.ROUTES.items()
+                if v != routes.get(k, 0)}
+        return scores, took, dict(stft_conv.LAUNCHES)
+
+    os.environ["BIRDA_STFT_KERNEL"] = "gather"
+    try:
+        card, routes, launches = run(dev, params)
+        cpu, cpu_routes, _ = run(torch.device("cpu"), params_from_numpy(
+            fn.params, "cpu", torch.bfloat16))
+    finally:
+        del os.environ["BIRDA_STFT_KERNEL"]
+    kernel, kernel_routes, kernel_launches = run(dev, params)
+    err = float((card - cpu).abs().max())
+    emit({"phase": "stft_gather", "rows": 2, "routes": routes,
+          "launches": launches, "cpu_routes": cpu_routes,
+          "max_abs_err_vs_cpu": err,
+          "max_abs_diff_vs_kernel_route": float(
+              (card - kernel).abs().max()),
+          "unset_routes": kernel_routes, "unset_launches": kernel_launches})
+    check(routes == cpu_routes == {"fused_logmel:composed": 1}
+          and not any(launches.values()),
+          f"stft_gather: routes {routes}, launches {launches}")
+    check(bool(torch.isfinite(card).all()) and err <= SCORE_DRIFT_BOUND,
+          f"stft_gather: {err} against the CPU")
+    check(kernel_routes == {"fused_logmel:kernel": 1}
+          and kernel_launches == {"fused_logmel": 1},
+          f"stft_gather unset: {kernel_routes}, {kernel_launches}")
+    return launches
+
+
+def recall_report_phase(onnx_path, labels_path, wav):
+    """``scripts/torch_int8_recall_report.py`` in a subprocess on full-scale
+    v2.4 with random weights, over 32 segments of a generated recording
+    (``--audio``): it must run on ``cuda:0`` and print its report. A
+    failed recall criterion (exit 1) is a result of random weights, printed
+    with the criteria lines, not a failure of the phase."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve().parent / "scripts"
+                             / "torch_int8_recall_report.py"),
+         str(onnx_path), "--audio", str(wav), "--limit", "32",
+         "--labels", str(labels_path)],
+        capture_output=True, text=True, timeout=900)
+    lines = r.stdout.splitlines()
+    emit({"phase": "recall_report", "exit_code": r.returncode,
+          "seconds": time.perf_counter() - t0,
+          "device": lines[0] if lines else None,
+          "report": [ln for ln in lines[1:] if ln.strip()
+                     and not ln.startswith("    ")],
+          "stderr_tail": r.stderr[-2000:] if r.returncode not in (0, 1)
+          else ""})
+    check(r.returncode in (0, 1) and lines
+          and lines[0].startswith("device: cuda:0")
+          and any("int8 accuracy report: 32 segments" in ln for ln in lines),
+          f"recall_report: exit {r.returncode}\n{r.stdout}\n{r.stderr}")
+
+
+def host_budget_phase():
+    """``scripts/torch_bench_host_budget.py`` at batch 32 over a 120 s
+    file: the host's decode, assembly and quantize costs per chunk on the
+    card's machine (no card needed)."""
+    r = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve().parent / "scripts"
+                             / "torch_bench_host_budget.py"),
+         "--batch", str(BATCH), "--seconds", "120"],
+        capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0, f"host_budget: exit {r.returncode}\n"
+          f"{r.stdout}\n{r.stderr}")
+    rec = json.loads(r.stdout)
+    emit({"phase": "host_budget", "batch": BATCH, "seconds": 120, **rec})
+    check(all(v > 0 for k, v in rec["host"].items() if k != "note"),
+          f"host_budget: {rec}")
 
 
 def _tensor_errors(got: dict, want: dict, order: list) -> list:
@@ -2288,13 +2407,16 @@ def main() -> int:
         # -- the acceptance rehearsal and the CLI, on v2.4 ----------------
         stft_conv.LAUNCHES.clear()
         launches_routes = kernel_routes_phase(dev)
-        verify, launches_verify = verify_kernels_phase(dev)
+        verify, verify_c9, launches_verify = verify_kernels_phase(dev)
         recorded, rows24, scores24, launches_parity = parity_phase(
             fullscale.BIRDNET_V24_SPEC, onnx24, dev)
         launches_accept = accept_phase(tmp, onnx24, labels24_path,
                                        recorded, rows24, scores24)
         del recorded
         launches_cli = cli_phase(tmp, onnx24, labels24_path)
+        launches_gather = stft_gather_phase(onnx24, dev)
+        recall_report_phase(onnx24, labels24_path, wavs24[0])
+        host_budget_phase()
 
         # -- 5. the exact integer routes at the quantized nodes' shapes ----
         cases, gemms = int8_cases(convs24, mms24, convs_perch)
@@ -2337,6 +2459,7 @@ def main() -> int:
                      launches_parity=launches_parity.get("fused_logmel", 0),
                      launches_accept=launches_accept.get("fused_logmel", 0),
                      launches_cli=launches_cli.get("fused_logmel", 0),
+                     launches_gather=launches_gather.get("fused_logmel", 0),
                      verify={name: {"q99_err": rec["logmel_q99_err"],
                                     "frames_per_block": rec[
                                         "frames_per_block"]["fused_logmel"],
@@ -2364,11 +2487,19 @@ def main() -> int:
                      launches_parity=launches_parity.get("conv1d_stft", 0),
                      launches_accept=launches_accept.get("conv1d_stft", 0),
                      launches_cli=launches_cli.get("conv1d_stft", 0),
+                     launches_gather=launches_gather.get("conv1d_stft", 0),
                      verify={name: {"rel_err": rec["conv_rel_err"],
                                     "frames_per_block": rec[
                                         "frames_per_block"]["conv1d_stft"],
                                     **rec["conv1d_stft"]}
-                             for name, rec in verify.items()}),
+                             for name, rec in verify.items()},
+                     verify_long_windows={
+                         name: {"rel_err": rec["conv_rel_err"],
+                                "frames_per_block": rec["frames_per_block"],
+                                "span_window_samples": rec[
+                                    "span_window_samples"],
+                                **rec["conv1d_stft"]}
+                         for name, rec in verify_c9.items()}),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,11 @@ timeout). It builds ``birda_tpu_torch/csrc`` at first use.
    hop 640/K 1280; rows of the window alone at hops past it, as the tiny
    test graphs stride; 16 and 8 frames at 4096- and 8192-sample windows)
    and 320 mels (two passes of 160).
-3. Each geometry of ``tests/torch_route_graphs.py`` through the port's
+3. ``conv1d_stft`` alone at :data:`C9_CASES`: windows whose one-frame
+   span outgrows shared memory, which the kernel streams in pieces along
+   the window (the JAX package's Pallas kernel takes them: ROADMAP C9), a
+   few channels each, against float64 within the same 2e-2, timed.
+4. Each geometry of ``tests/torch_route_graphs.py`` through the port's
    evaluator in bf16 (``lower``): it prints the route the node takes
    (``kernel`` or ``composed``, from ``stft_conv.ROUTES``) and the
    kernels it launched, and holds the output against the port's CPU run of
@@ -71,6 +75,11 @@ WIDE_CASES = [
     ("hop2560_k640", 160_000, 640, 2560, 40),
     ("hop4096_k4096", 160_000, 4096, 4096, 128),
     ("hop8192_k8192", 160_000, 8192, 8192, 128),
+]
+#: (name, S, K, hop, C) of the Conv1d-STFT kernel's streamed span.
+C9_CASES = [
+    ("c9_k80000", 160_000, 80_000, 10_000, 2),
+    ("c9_k100000", 160_000, 100_000, 12_500, 8),
 ]
 BATCH = 4
 CONV_REL_BOUND = 2e-2
@@ -164,6 +173,54 @@ def stft_case(name: str, s: int, k: int, hop: int, mels: int, batch: int,
     return rec
 
 
+def conv_case(name: str, s: int, k: int, hop: int, c: int, batch: int,
+              dev) -> dict:
+    """``conv1d_stft`` alone at one geometry of ``c`` channels against
+    float64 and its plain version, timed on a card; its layout (frames per
+    block, window samples the span holds)."""
+    import torch
+
+    from birda_tpu_torch.ops import stft_conv
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(0, 0.3, (batch, s)).astype(np.float32))
+    w = torch.from_numpy(
+        (rng.normal(0, 1, (c, k)) / np.sqrt(k)).astype(np.float32))
+    x, w = x.to(dev), w.to(dev)
+    layout = stft_conv.conv1d_layout(s, k, hop, c)
+    prepared = stft_conv.prepare_conv1d_weights(w) \
+        if dev.type == "cuda" else None
+
+    def conv():
+        return stft_conv.conv1d_stft(x, w, hop, prepared=prepared)
+
+    before = stft_conv.LAUNCHES["conv1d_stft"]
+    got = conv().double()
+    launches = stft_conv.LAUNCHES["conv1d_stft"] - before
+    want = torch.matmul(x.to(torch.bfloat16).double().unfold(-1, k, hop),
+                        w.to(torch.bfloat16).double().T).transpose(1, 2)
+    err = float((got - want).abs().max() / want.abs().max())
+    plain = stft_conv.conv1d_stft_reference(x, w, hop).double()
+    t = (s - k) // hop + 1
+    rec = {"case": name, "geometry": {"batch": batch, "s": s, "k": k,
+                                      "hop": hop, "c": c},
+           "fits": stft_conv.conv1d_kernel_fits(s, k, hop, c),
+           "frames_per_block": layout and layout[0],
+           "span_window_samples": layout and layout[1],
+           "launches": launches, "conv_rel_err": err,
+           "conv_max_abs_err_vs_plain": float((got - plain).abs().max()),
+           "ok": bool(layout is not None and err < CONV_REL_BOUND)}
+    if dev.type == "cuda":
+        rec["ok"] = rec["ok"] and launches == 1
+        rec["conv1d_stft"] = {
+            "ms": timed_ms(conv),
+            "plain_ms": timed_ms(
+                lambda: stft_conv.conv1d_stft_reference(x, w, hop)),
+            **bound(x.numel() * 4 + w.numel() * 2 + batch * c * t * 2,
+                    2 * batch * t * k * c)}
+    return rec
+
+
 def route_case(case, batch: int, dev, s: int | None = None) -> dict:
     """One geometry of ``tests/torch_route_graphs.py`` (at ``s`` samples,
     its own by default) through ``lower`` in bf16 on ``dev``: the route its
@@ -231,6 +288,15 @@ def main() -> int:
             traceback.print_exc(limit=3)
         failures += not rec["ok"]
         print(json.dumps({"kernel": "stft/logmel", **rec}), flush=True)
+    for name, s, k, hop, c in C9_CASES:
+        try:
+            rec = conv_case(name, s, k, hop, c, BATCH, dev)
+        except Exception as e:  # noqa: BLE001
+            rec = {"case": name, "error": f"{type(e).__name__}: {e}"[:2000],
+                   "ok": False}
+            traceback.print_exc(limit=3)
+        failures += not rec["ok"]
+        print(json.dumps({"kernel": "conv1d_stft", **rec}), flush=True)
     for case in rg.CASES:
         try:
             rec = route_case(case, 2, dev)

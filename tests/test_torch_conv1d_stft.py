@@ -19,7 +19,8 @@ import pytest
 import torch
 
 from birda_tpu_torch.ops import stft_conv
-from torch_kernel_layout import span_frames, unswizzle
+from torch_kernel_layout import (layout_frames, piece_frames, span_frames,
+                                 unswizzle)
 
 REL_BOUND = 2e-2
 
@@ -27,7 +28,8 @@ REL_BOUND = 2e-2
 # (S and C shrunk; the tiling depends on K and hop), T below one tile, and
 # hops whose span of 128 frames a block cannot hold, which the kernel takes
 # in fewer frames per block (64 at hop 512 and 1024, 64 with rows of the
-# window alone where the hop is longer than it, 8 at an 8192 window).
+# window alone where the hop is longer than it, 8 at an 8192 window), and
+# windows past shared memory, whose span the kernel streams in pieces.
 GEOMETRIES = [
     pytest.param(3, 20_000, 2048, 278, 66, id="v24-shape"),
     pytest.param(3, 20_000, 1024, 320, 34, id="v30-shape"),
@@ -37,6 +39,11 @@ GEOMETRIES = [
     pytest.param(2, 80_000, 1024, 1024, 34, id="hop1024-64-frames"),
     pytest.param(2, 200_000, 640, 2560, 40, id="hop-past-window"),
     pytest.param(1, 90_000, 8192, 8192, 8, id="window8192-8-frames"),
+    # Windows whose one-frame span outgrows shared memory, where the JAX
+    # package's VMEM budget holds (ROADMAP C9): the span streamed in pieces.
+    pytest.param(2, 160_000, 80_000, 10_000, 2, id="c9-window80000-streamed"),
+    pytest.param(1, 160_000, 100_000, 12_500, 8,
+                 id="c9-window100000-streamed"),
 ]
 
 
@@ -46,6 +53,31 @@ def test_frames_per_block_at_the_wide_geometries():
     assert [stft_conv.conv1d_frames(h, k) for k, h in (
         (2048, 278), (640, 320), (2048, 512), (1024, 1024), (640, 2560),
         (8192, 8192))] == [128, 128, 64, 64, 64, 8]
+
+
+@pytest.mark.parametrize("s,k,hop,c", [
+    (160_000, 80_000, 10_000, 2), (160_000, 100_000, 12_500, 8),
+    (160_000, 60_000, 18_438, 2),
+    # Hops below the piece (rows of one hop), over two blocks of frames.
+    (96_000 + 140 * 320, 96_000, 320, 2), (74_000 + 140 * 321, 74_000, 321, 2),
+])
+def test_streamed_span_reads_what_the_whole_span_reads(s, k, hop, c):
+    """At windows whose one-frame span outgrows shared memory (ROADMAP C9)
+    the kernel streams the span in pieces: every frame reads the samples
+    it reads from the whole window's span (a block of 128 frames), which
+    are the bf16 signal's at t * hop + k, zero past K."""
+    frames, piece = stft_conv.conv1d_layout(s, k, hop, c)
+    k_pad = -(-k // 64) * 64
+    assert stft_conv.conv1d_frames(hop, k) is None
+    assert frames == 128 and piece % 64 == 0 and piece < k_pad
+    x = _bf16(np.random.default_rng(0).normal(0, 1, (1, s))
+              .astype(np.float32)).astype(np.float64)
+    t = (s - k) // hop + 1
+    got = piece_frames(x, hop, k, k_pad, t, piece)
+    assert np.array_equal(got, span_frames(x, hop, k, k_pad, t))
+    pos = np.arange(t)[:, None] * hop + np.arange(k)[None, :]
+    assert np.array_equal(got[:, :, :k], x[:, pos])
+    assert not got[:, :, k:].any()
 
 
 def _case(b, s, k, c, seed=0):
@@ -137,9 +169,9 @@ def test_kernel_layout_reproduces_plain_version(monkeypatch, b, s, k, hop,
             and n_kc * tile_k >= k > (n_kc - 1) * tile_k)
 
     t = (s - k) // hop + 1
-    frames = span_frames(_bf16(x).astype(np.float64), hop, k,
-                         n_kc * tile_k, t,
-                         stft_conv.conv1d_frames(hop, k))  # [B, T, Kp]
+    frames = layout_frames(_bf16(x).astype(np.float64), hop, k,
+                           n_kc * tile_k, t,
+                           stft_conv.conv1d_layout(s, k, hop, c))  # [B,T,Kp]
     wimg = unswizzle(layout.w.double().numpy())  # [n_ct, n_kc, Cp, Kp]
     out = np.concatenate([
         sum(frames[..., j * tile_k:(j + 1) * tile_k] @ wimg[ct, j].T
@@ -199,6 +231,8 @@ def test_layout_refuses_a_weight_that_is_not_two_dimensional(monkeypatch):
     pytest.param(4, 144_000, 2048, 278, 2050, id="v24"),
     pytest.param(2, 6_000, 2048, 278, 40, id="short-t"),
     pytest.param(2, 20_000, 1000, 161, 200, id="odd-hop"),
+    pytest.param(2, 160_000, 80_000, 10_000, 2, id="c9-streamed"),
+    pytest.param(2, 160_000, 74_000, 321, 8, id="c9-streamed-odd-hop"),
 ])
 def test_card_kernel_matches_plain_version(b, s, k, hop, c):
     """On a CUDA card: the hand-written kernel against its plain version
@@ -216,6 +250,8 @@ def test_card_kernel_matches_plain_version(b, s, k, hop, c):
     assert got.shape == want.shape
     err = (got.float() - want.float()).abs().max()
     assert float(err / want.float().abs().max()) < REL_BOUND
+    if k > 4096:  # an identity weight of a C9 window: 10^10 elements
+        return
     eye = torch.eye(k, device=dev)
     assert torch.equal(stft_conv.conv1d_stft(x, eye, hop),
                        stft_conv.conv1d_stft_reference(x, eye, hop))

@@ -37,7 +37,9 @@ FORBIDDEN = ("birda_tpu", "jax", "jaxlib", "flax")
 CHIP_HELPERS = ["tests/torch_op_cases.py", "tests/torch_seq_graphs.py",
                 "tests/torch_route_graphs.py"]
 #: The port's tools, run on the card's machine.
-TOOLS = ["scripts/torch_accept_asset.py", "scripts/verify_kernels_cuda.py"]
+TOOLS = ["scripts/torch_accept_asset.py", "scripts/verify_kernels_cuda.py",
+         "scripts/torch_int8_recall_report.py",
+         "scripts/torch_bench_host_budget.py"]
 PORT_SOURCES = sorted(
     str(p.relative_to(REPO))
     for p in (REPO / "birda_tpu_torch").rglob("*.py")) + ["chip_smoke.py"] \

@@ -18,9 +18,11 @@ the shipped ones (v2.4, v3.0, Perch v2's framer) on the kernel; four whose
 span of 128 frames or mel width the kernels once could not hold, now on
 the kernel in fewer frames per block or two mel passes (librosa's default
 STFT at hop 512, a non-overlapping framer at hop 1024, a fused front end
-at hop 640 and one of two 160-mel banks); and one the kernel cannot hold,
-a conv whose single window of 76,800 samples outgrows a block's shared
-memory, on the composed route. It imports numpy and the port's own modules
+at hop 640 and one of two 160-mel banks); a conv whose window of 80,000
+samples outgrows a block's shared memory, on the kernel with its span
+streamed in pieces (the JAX package's VMEM budget holds there); and one
+the JAX package's kernel does not take either, a conv of one window of
+76,800 samples, on the composed route. It imports numpy and the port's own modules
 only, so that a machine without jax can build the graphs.
 """
 
@@ -84,6 +86,8 @@ CASES = [
     RouteCase("frontend_320_mels", "frontend", 160_000, 1024, 320,
               "kernel",
               banks=((160, 0.0, 8000.0), (160, 500.0, 16_000.0))),
+    RouteCase("conv_window_80000", "conv", 160_000, 80_000, 10_000,
+              "kernel", channels=2),
     RouteCase("conv_window_76800", "conv", 160_000, 76_800, 76_800,
               "composed", channels=4),
 ]
