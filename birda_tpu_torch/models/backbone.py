@@ -4,9 +4,16 @@
 The native architecture behind the ``synthetic:`` model paths: the mel
 front-end (:mod:`birda_tpu_torch.ops.melspec`), per-sample
 standardization, an MBConv / fused-MBConv backbone, global pooling, an
-embedding head and a class head, in float32. Stock PyTorch throughout
-(cuDNN convs, cuBLAS products): the JAX module is XLA, with no Pallas
-kernel.
+embedding head and a class head. Stock PyTorch throughout (cuDNN convs,
+cuBLAS products): the JAX module is XLA, with no Pallas kernel.
+
+Each module takes the flax modules' ``dtype`` (default float32): the
+parameters stay float32, each conv and dense casts its input and weights to
+``dtype`` and computes there, each BatchNorm computes in float32 (its
+statistics are float32, as flax promotes them) and returns ``dtype``, and
+the classifier casts its standardized input to ``dtype`` at the stem. Where
+a block adds a float32 input to a ``dtype`` output, torch's promotion gives
+float32, as jnp's does. With float32 every cast is the identity.
 
 Each module registers its children under flax's own names (``ClassName_i``
 counted per class inside each parent, and the named ``embedding`` and
@@ -61,10 +68,12 @@ class Conv(nn.Module):
     kh, kw] (flax: [kh, kw, in/groups, out]) and an optional ``bias``."""
 
     def __init__(self, cin: int, features: int, kernel=(3, 3), strides=(1, 1),
-                 groups: int = 1, bias: bool = True):
+                 groups: int = 1, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.strides = tuple(strides)
         self.groups = groups
+        self.dtype = dtype
         self.register_buffer(
             "kernel", torch.zeros(features, cin // groups, *kernel))
         if bias:
@@ -76,18 +85,22 @@ class Conv(nn.Module):
         kh, kw = self.kernel.shape[2:]
         (t, b), (l, r) = (same_pads(x.shape[2], kh, self.strides[0]),
                           same_pads(x.shape[3], kw, self.strides[1]))
+        x = x.to(self.dtype)
         if t or b or l or r:
             x = F.pad(x, (l, r, t, b))
-        return F.conv2d(x, self.kernel, self.bias, self.strides,
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv2d(x, self.kernel.to(self.dtype), bias, self.strides,
                         groups=self.groups)
 
 
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm(use_running_average=True)`` over channels, in
-    flax's order: ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+    flax's order: ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, in
+    float32 (the float32 statistics promote ``x``), out as ``dtype``."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         for name in ("scale", "bias", "mean", "var"):
             self.register_buffer(name, torch.zeros(features))
 
@@ -96,30 +109,35 @@ class BatchNorm(nn.Module):
             return v.reshape(1, -1, 1, 1)
 
         mul = torch.rsqrt(c(self.var) + BN_EPSILON) * c(self.scale)
-        return (x - c(self.mean)) * mul + c(self.bias)
+        return ((x - c(self.mean)) * mul + c(self.bias)).to(self.dtype)
 
 
 class Dense(nn.Module):
     """flax ``nn.Dense``: ``kernel`` [in, out] and ``bias`` [out]."""
 
-    def __init__(self, cin: int, features: int):
+    def __init__(self, cin: int, features: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.register_buffer("kernel", torch.zeros(cin, features))
         self.register_buffer("bias", torch.zeros(features))
 
     def forward(self, x):
-        return torch.matmul(x, self.kernel) + self.bias
+        return (torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
+                + self.bias.to(self.dtype))
 
 
 class ConvBNAct(_Flax):
     """Conv (no bias) -> BatchNorm -> swish (SiLU) unless ``act=False``."""
 
     def __init__(self, cin: int, features: int, kernel=(3, 3), strides=(1, 1),
-                 groups: int = 1, act: bool = True):
+                 groups: int = 1, act: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.act = act
-        self._child(Conv(cin, features, kernel, strides, groups, bias=False))
-        self._child(BatchNorm(features))
+        self._child(Conv(cin, features, kernel, strides, groups, bias=False,
+                         dtype=dtype))
+        self._child(BatchNorm(features, dtype))
 
     def forward(self, x):
         x = self.BatchNorm_0(self.Conv_0(x))
@@ -127,10 +145,11 @@ class ConvBNAct(_Flax):
 
 
 class SqueezeExcite(_Flax):
-    def __init__(self, features: int, se_features: int):
+    def __init__(self, features: int, se_features: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self._child(Conv(features, se_features, (1, 1)))
-        self._child(Conv(se_features, features, (1, 1)))
+        self._child(Conv(features, se_features, (1, 1), dtype=dtype))
+        self._child(Conv(se_features, features, (1, 1), dtype=dtype))
 
     def forward(self, x):
         s = x.mean(dim=(2, 3), keepdim=True)
@@ -144,20 +163,21 @@ class MBConv(_Flax):
     allow."""
 
     def __init__(self, cin: int, features: int, expand: int, kernel, strides,
-                 se_ratio: float = 0.25):
+                 se_ratio: float = 0.25, dtype: torch.dtype = torch.float32):
         super().__init__()
         mid = cin * expand
         self.residual = tuple(strides) == (1, 1) and cin == features
         layers = []
         if expand != 1:
-            layers.append(self._child(ConvBNAct(cin, mid, (1, 1))))
+            layers.append(self._child(ConvBNAct(cin, mid, (1, 1),
+                                                dtype=dtype)))
         layers.append(self._child(ConvBNAct(mid, mid, kernel, strides,
-                                            groups=mid)))
+                                            groups=mid, dtype=dtype)))
         if se_ratio > 0:
             layers.append(self._child(SqueezeExcite(
-                mid, max(1, int(cin * se_ratio)))))
+                mid, max(1, int(cin * se_ratio)), dtype)))
         layers.append(self._child(ConvBNAct(mid, features, (1, 1),
-                                            act=False)))
+                                            act=False, dtype=dtype)))
         self.layers = layers
 
     def forward(self, x):
@@ -171,18 +191,21 @@ class FusedMBConv(_Flax):
     """EfficientNetV2-style fused block: one full ``kernel`` expand conv
     (then a 1x1 project) in place of 1x1-expand + depthwise."""
 
-    def __init__(self, cin: int, features: int, expand: int, kernel, strides):
+    def __init__(self, cin: int, features: int, expand: int, kernel, strides,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         mid = cin * expand
         self.residual = tuple(strides) == (1, 1) and cin == features
         if expand != 1:
             self.layers = [
-                self._child(ConvBNAct(cin, mid, kernel, strides)),
-                self._child(ConvBNAct(mid, features, (1, 1), act=False)),
+                self._child(ConvBNAct(cin, mid, kernel, strides, dtype=dtype)),
+                self._child(ConvBNAct(mid, features, (1, 1), act=False,
+                                      dtype=dtype)),
             ]
         else:
             self.layers = [self._child(ConvBNAct(cin, features, kernel,
-                                                 strides, act=False))]
+                                                 strides, act=False,
+                                                 dtype=dtype))]
 
     def forward(self, x):
         h = x
@@ -212,17 +235,20 @@ class AudioClassifier(_Flax):
     precomputed mel ``[batch, frames, mels]`` (the chunk runner's hop-grid
     front-end). Output dict: ``scores`` [batch, num_classes] after
     sigmoid/softmax, ``logits`` and ``embeddings`` [batch, embedding_dim],
-    all float32.
+    all float32 at any ``dtype``.
     """
 
     def __init__(self, mel: MelSpecConfig, num_classes: int,
                  embedding_dim: int, activation: str = "sigmoid",
                  blocks=DEFAULT_BLOCKS, stem_features: int = 32,
-                 head_features: int = 1280):
+                 head_features: int = 1280,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.mel = mel
         self.activation = activation
-        layers = [self._child(ConvBNAct(1, stem_features, (3, 3), (2, 2)))]
+        self.dtype = dtype
+        layers = [self._child(ConvBNAct(1, stem_features, (3, 3), (2, 2),
+                                        dtype=dtype))]
         cin = stem_features
         for spec in blocks:
             features, repeats, k, s, expand = spec[:5]
@@ -231,19 +257,22 @@ class AudioClassifier(_Flax):
             for i in range(repeats):
                 strides = (s, s) if i == 0 else (1, 1)
                 layers.append(self._child(block(cin, features, expand,
-                                                (k, k), strides)))
+                                                (k, k), strides,
+                                                dtype=dtype)))
                 cin = features
-        layers.append(self._child(ConvBNAct(cin, head_features, (1, 1))))
+        layers.append(self._child(ConvBNAct(cin, head_features, (1, 1),
+                                            dtype=dtype)))
         self.layers = layers
-        self._child(Dense(head_features, embedding_dim), "embedding")
-        self._child(Dense(embedding_dim, num_classes), "classifier")
+        self._child(Dense(head_features, embedding_dim, dtype), "embedding")
+        self._child(Dense(embedding_dim, num_classes, dtype), "classifier")
 
     def forward(self, waveform):
         x = waveform if waveform.ndim == 3 else melspec(waveform, self.mel)
         # Per-sample standardization; jnp.std is the population std.
         mu = x.mean(dim=(1, 2), keepdim=True)
         sd = x.std(dim=(1, 2), keepdim=True, correction=0) + 1e-6
-        x = ((x - mu) / sd)[:, None]  # NCHW, H = frames, W = mels
+        # NCHW, H = frames, W = mels, cast at the stem as in flax.
+        x = ((x - mu) / sd)[:, None].to(self.dtype)
         for layer in self.layers:
             x = layer(x)
         x = x.mean(dim=(2, 3))  # global average pool

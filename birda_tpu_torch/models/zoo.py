@@ -309,10 +309,13 @@ def native_model(
     family: ModelFamily | str,
     params=None,
     labels: list[str] | None = None,
+    dtype: torch.dtype | None = torch.float32,
     seed: int = 0,
     blocks=None,
 ) -> LoadedModel:
-    """The native model of a family, in float32.
+    """The native model of a family, computing in ``dtype`` (float32 by
+    default; ``torch.bfloat16`` runs its convs and products in bf16 over
+    float32 parameters, as the flax modules' ``dtype`` does).
 
     With ``params=None`` the weights are synthesized from ``seed`` (the
     ``synthetic:`` path of tests and benchmarks: contract- and
@@ -327,6 +330,7 @@ def native_model(
         num_classes=cfg.num_classes,
         embedding_dim=cfg.embedding_dim or 1024,
         activation=cfg.activation.value,
+        dtype=dtype or torch.float32,
         **kwargs,
     ).eval()
     if params is None:
@@ -363,6 +367,7 @@ TINY_BLOCKS = ((16, 1, 3, 2, 1), (24, 1, 3, 2, 2), (40, 1, 3, 2, 2))
 
 
 def tiny_model(family: ModelFamily | str = ModelFamily.BIRDNET_V24,
-               seed: int = 0) -> LoadedModel:
+               seed: int = 0, dtype: torch.dtype | None = torch.float32
+               ) -> LoadedModel:
     """Contract-exact but tiny — the fixture-model equivalent for CI."""
-    return native_model(family, seed=seed, blocks=TINY_BLOCKS)
+    return native_model(family, seed=seed, dtype=dtype, blocks=TINY_BLOCKS)

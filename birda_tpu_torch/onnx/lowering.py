@@ -409,9 +409,13 @@ def _full_precision():
 #: 1040 · 127² < 2²⁴, so every partial sum, in any order, is an integer that
 #: float32 holds exactly.
 EXACT_FP32_DEPTH = 1040
-#: ``torch._int_mm`` on the card (cuBLASLt, int8 -> int32) takes more than 16
-#: rows, and inner and output widths that are multiples of 8.
-INT_MM_MIN_ROWS = 17
+#: ``torch._int_mm`` on the card (cuBLASLt, int8 -> int32) takes inner and
+#: output widths that are multiples of 8, and rows padded here to a multiple
+#: of 32: torch's own check passes more than 16 rows, but on the H100
+#: cuBLASLt has no kernel for 17 or 24 rows at some widths (17 x 16 x 240
+#: and 24 x 16 x 240, a squeeze-excite product of v2.4 at batch 8), and the
+#: main paths run every product at a multiple of 32 rows.
+INT_MM_ROWS = 32
 INT_MM_ALIGN = 8
 
 
@@ -429,11 +433,11 @@ def int_mm_weight(w: torch.Tensor) -> torch.Tensor:
 def _int_mm(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
     """``torch._int_mm`` of ``a [M, K]`` and a weight from
     :func:`int_mm_weight` (``n`` true output columns): ``a`` is zero-padded
-    to the weight's padded depth and to INT_MM_MIN_ROWS rows, and the result
-    sliced back."""
+    to the weight's padded depth and to a multiple of INT_MM_ROWS rows, and
+    the result sliced back."""
     m, k = a.shape
     kp = b.shape[0]
-    pm = max(m, INT_MM_MIN_ROWS) - m
+    pm = -m % INT_MM_ROWS
     if pm or kp != k:
         a = F.pad(a, (0, kp - k, 0, pm))
     out = torch._int_mm(a.contiguous(), b)

@@ -253,8 +253,10 @@ class _CaptureEvaluator(_Evaluator):
 def calibrate(
     model: Model | bytes | str,
     batches,
+    params: dict | None = None,
     method: str = "max",
     percentile: float = 99.9,
+    min_weight_bytes: int = DEFAULT_MIN_WEIGHT_BYTES,
     device: str | torch.device = "cuda",
 ) -> CalibrationResult:
     """Run calibration batches through the float graph at fp32 (TF32 off),
@@ -264,9 +266,9 @@ def calibrate(
     graphs) or tuples matching the graph's input order. The graph and its
     weights run on ``device`` (the card unless the caller asks for the
     CPU); the statistics are reduced there and copied to the host once per
-    batch. Unlike the JAX package's, it takes no ``params`` (no caller
-    passes its own weights) and no ``min_weight_bytes`` (which there no
-    longer prunes anything).
+    batch. ``params`` overrides the lifted weights (arrays or tensors;
+    pass copies already on ``device`` to avoid copying them again), as in
+    the JAX package.
     """
     if method not in ("max", "percentile"):
         raise ValueError(f"unknown calibration method {method!r}")
@@ -275,7 +277,9 @@ def calibrate(
     graph = model.graph
     # Record stats for EVERY structurally eligible node — selection happens
     # in lower_int8, where both size gates (weight bytes OR activation
-    # elements) need the stats to decide.
+    # elements) need the stats to decide. ``min_weight_bytes`` is kept for
+    # the JAX package's signature but no longer prunes the capture set.
+    del min_weight_bytes
     targets = set()
     for node in graph.nodes:
         if _structurally_eligible(graph, node) is not None:
@@ -284,8 +288,11 @@ def calibrate(
     ev = _CaptureEvaluator(graph, targets, percentile)
     fn = OnnxFunction(model, evaluator=ev)
     dev = torch.device(device)
-    params = {k: torch.from_numpy(np.require(v, requirements=["C", "W"]))
-              .to(dev) for k, v in fn.params.items()}
+    if params is None:
+        params = fn.params
+    params = {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(
+        np.require(v, requirements=["C", "W"]))).to(dev)
+        for k, v in params.items()}
 
     agg: dict = {}
     n = 0

@@ -1,7 +1,8 @@
-"""Device timing and the card's least time for a piece of work: what the
-port's tools (``scripts/verify_kernels_cuda.py``,
-``scripts/torch_accept_asset.py``) and ``chip_smoke.py`` report beside
-each kernel's time.
+"""Device timing, the device's busy time over a window of steps, and the
+card's least time for a piece of work: what the port's tools
+(``scripts/verify_kernels_cuda.py``, ``scripts/torch_accept_asset.py``,
+``scripts/torch_bench.py``) and ``chip_smoke.py`` report beside each
+kernel's or step's time.
 """
 
 from __future__ import annotations
@@ -49,3 +50,47 @@ def bound(n_bytes: int, flops: int) -> dict:
     return {"bytes": n_bytes, "flops": flops,
             "bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def profile_steps(step, steps: int, top: int = 8) -> dict:
+    """Run ``step()`` ``steps`` times under ``torch.profiler`` on a warm
+    card: the device's busy time per step (the union of the kernels'
+    spans, so overlapping kernels count once), the kernels launched per
+    step and the ``top`` kernels that take the most device time, by name
+    (cut to 80 characters), in ms per step. On the CPU no kernel is
+    traced: busy time and launches are 0."""
+    from collections import Counter
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        for _ in range(steps):
+            step()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in kernels):
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    by_name = Counter()
+    for e in kernels:
+        by_name[e.name[:80]] += e.time_range.elapsed_us()
+    return {"device_busy_ms_per_step": busy_us / steps / 1e3,
+            "kernels_per_step": len(kernels) / steps,
+            "top_kernels_ms_per_step": [
+                [name, us / steps / 1e3]
+                for name, us in by_name.most_common(top)]}
+
+
+def idle_share(busy_ms: float, step_ms: float):
+    """The share of a step's host-clock time in which the device ran no
+    kernel; None where no kernel was traced."""
+    return (1 - busy_ms / step_ms) if busy_ms else None

@@ -4,7 +4,8 @@
 The DFT runs as two products against a precomputed Hann-windowed basis (real
 and imaginary), then the power, the mel product and the log. The JAX module
 leaves these products to XLA, outside any Pallas kernel; here they are
-``torch.matmul`` (cuBLAS on the card), in float32 on every device.
+``torch.matmul`` (cuBLAS on the card), in float32 on every device; the
+hop-grid front-end takes the JAX function's ``compute_dtype``.
 :func:`hann` and :func:`mel_filterbank` also build the full-scale fixtures'
 front-ends (:mod:`birda_tpu_torch.onnx.fullscale`).
 """
@@ -109,8 +110,18 @@ def melspec(x: torch.Tensor, cfg: MelSpecConfig) -> torch.Tensor:
     return _scaled(torch.matmul(re * re + im * im, fb), cfg)
 
 
+def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with float32 sums, as jnp's ``preferred_element_type=
+    float32``: operands of a narrower dtype are widened exactly (a product
+    of two bf16 values is exact in float32); float32 operands multiply as
+    they are."""
+    return torch.matmul(a.float(), b.float())
+
+
 def melspec_from_chunk(chunk: torch.Tensor, cfg: MelSpecConfig, batch: int,
-                       step_samples: int, n_samples: int) -> torch.Tensor:
+                       step_samples: int, n_samples: int,
+                       compute_dtype: torch.dtype | None = None
+                       ) -> torch.Tensor:
     """Mel spectrograms of ``batch`` overlapped windows of a contiguous 1-D
     float32 chunk, windows ``step_samples`` apart, ``n_samples`` long:
     [batch, frames, n_mels] float32.
@@ -122,6 +133,11 @@ def melspec_from_chunk(chunk: torch.Tensor, cfg: MelSpecConfig, batch: int,
     Window ``b`` then reads global frames ``[b·step/hop, +frames)``.
     Requires ``step_samples % hop == 0`` (callers frame per window
     otherwise).
+
+    With ``compute_dtype=torch.bfloat16`` the chunk, the DFT bases, the
+    power and the filterbank are rounded to bf16 before their products,
+    whose sums stay float32, as in the JAX function; None computes in
+    float32.
     """
     if step_samples % cfg.hop != 0:
         raise ValueError(
@@ -136,17 +152,19 @@ def melspec_from_chunk(chunk: torch.Tensor, cfg: MelSpecConfig, batch: int,
     n_parts = -(-cfg.n_fft // hop)
     # Later part offsets overrun the chunk tail by up to n_parts*hop - n_fft
     # samples (whole rows whose trailing columns are never read).
-    x = torch.nn.functional.pad(chunk.float(), (0, n_parts * hop))
+    dtype = torch.float32 if compute_dtype is None else compute_dtype
+    x = torch.nn.functional.pad(chunk.to(dtype), (0, n_parts * hop))
     re = im = None
     for part in range(n_parts):
         off = part * hop
         width = min(hop, cfg.n_fft - off)
         part_x = x[off:off + n_global * hop].reshape(n_global, hop)[:, :width]
-        r = torch.matmul(part_x, cos_b[off:off + width])
-        i = torch.matmul(part_x, sin_b[off:off + width])
+        r = _matmul_f32(part_x, cos_b[off:off + width].to(dtype))
+        i = _matmul_f32(part_x, sin_b[off:off + width].to(dtype))
         re = r if re is None else re + r
         im = i if im is None else im + i
-    mel = torch.matmul(re * re + im * im, fb)  # [N_global, mels]
+    power = re * re + im * im  # [N_global, bins] float32
+    mel = _matmul_f32(power.to(dtype), fb.to(dtype))  # [N_global, mels]
     rows = (torch.arange(batch, device=chunk.device)[:, None] * frames_per_step
             + torch.arange(frames, device=chunk.device)[None, :])
     return _scaled(mel[rows], cfg)

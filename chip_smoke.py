@@ -77,8 +77,13 @@ and ``cli_commands`` (the port's CLI in subprocesses: ``version``,
 phase that sets ``BIRDA_STFT_KERNEL``, to ``gather``: the v2.4 front end on
 its composed route with no kernel launch, against the CPU),
 ``recall_report`` (``scripts/torch_int8_recall_report.py`` on 32 segments
-of a v2.4 recording, on ``cuda:0``) and ``host_budget``
-(``scripts/torch_bench_host_budget.py`` at batch 32 over 120 s).
+of a v2.4 recording, on ``cuda:0``), ``host_budget``
+(``scripts/torch_bench_host_budget.py`` at batch 32 over 120 s) and
+``bench_tools`` (``scripts/torch_bench.py``, ``torch_bench_int8.py`` and
+``torch_sweep_int8_batch.py`` in subprocesses, a few steps each, at the
+port's CUDA default batches: v2.4 bf16, Perch v2 int8, v3.0 bf16, e2e on
+one 60 s file, the native v2.4 backbone in bf16, v2.4 int8 against bf16,
+and Perch v2 int8 at batch 32 and 64).
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after, and must have launched its kernel (the native path: none). Each model's bf16, int8 and
@@ -108,9 +113,11 @@ import wave
 from pathlib import Path
 
 # The port's measurement helpers: the card's name and power limit, device
-# time per call and the card's least time for a piece of work.
+# time per call, the device's busy time over a window of steps and the
+# card's least time for a piece of work.
 from birda_tpu_torch.inference.backend import card_line
-from birda_tpu_torch.ops.measure import bound, timed_ms
+from birda_tpu_torch.ops.measure import (bound, idle_share, profile_steps,
+                                         timed_ms)
 
 #: Bounds: the JAX package's own on-chip log-mel bound
 #: (scripts/verify_kernels_tpu.py), its Conv1d-STFT kernel bound (max error
@@ -1245,14 +1252,10 @@ def quantized_vs_fp32(phase, family, onnx_path, labels, chunk, fp32,
 def steady_step(phase, clf, chunk):
     """The bf16 chunk step on a warm runner: host-clock time per step over
     ``STEP_ITERS`` steps, then a ``torch.profiler`` window of
-    ``PROFILE_STEPS`` steps for the device's busy time (the union of the
-    kernels' spans), the launches per step and the kernels that take the
-    most device time."""
-    from collections import Counter
-
+    ``PROFILE_STEPS`` steps (``measure.profile_steps``) for the device's
+    busy time, the launches per step and the kernels that take the most
+    device time."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     runner = clf.chunk_runner(BATCH, clf.sample_count)
     for _ in range(2):
@@ -1263,30 +1266,15 @@ def steady_step(phase, clf, chunk):
         runner.predict_chunk(chunk, BATCH)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / STEP_ITERS * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_STEPS):
-            runner.predict_chunk(chunk, BATCH)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us, end = 0.0, float("-inf")
-    for start, stop in sorted((e.time_range.start, e.time_range.end)
-                              for e in kernels):
-        if stop > end:
-            busy_us += stop - max(start, end)
-            end = stop
-    by_name = Counter()
-    for e in kernels:
-        by_name[e.name[:80]] += e.time_range.elapsed_us()
-    busy_ms = busy_us / PROFILE_STEPS / 1e3
+    prof = profile_steps(lambda: runner.predict_chunk(chunk, BATCH),
+                         PROFILE_STEPS)
+    busy_ms = prof["device_busy_ms_per_step"]
     emit({"phase": phase, "batch": BATCH, "chunk_step_ms": step_ms,
           "segments_per_s": BATCH / step_ms * 1e3,
           "device_busy_ms_per_step": busy_ms,
-          "device_idle_share": (1 - busy_ms / step_ms) if busy_ms else None,
-          "kernels_per_step": len(kernels) / PROFILE_STEPS,
-          "top_kernels_ms_per_step": [
-              [name, us / PROFILE_STEPS / 1e3]
-              for name, us in by_name.most_common(8)]})
+          "device_idle_share": idle_share(busy_ms, step_ms),
+          "kernels_per_step": prof["kernels_per_step"],
+          "top_kernels_ms_per_step": prof["top_kernels_ms_per_step"]})
 
 
 def read_wav(path: Path):
@@ -2007,6 +1995,90 @@ def host_budget_phase():
           f"host_budget: {rec}")
 
 
+#: The measuring tools as ``bench_tools`` runs them: (name, environment,
+#: arguments, time limit in seconds). Few steps and one short e2e file, so
+#: the phase stays near two minutes; the full runs are the tools' own.
+BENCH_TOOLS = (
+    ("torch_bench", {}, ["--only", "birdnet_v24,perch_v2_int8,birdnet_v30,"
+                         "e2e,native_v24", "--iters", "2", "--repeats", "2",
+                         "--e2e-seconds", "60",
+                         "--e2e-files", "1", "--budget", "400"], 480),
+    ("torch_bench_int8", {}, ["birdnet-v24", "--iters", "2", "--repeats",
+                              "2", "--budget", "300"], 360),
+    ("torch_sweep_int8_batch", {"BATCHES": "32,64"},
+     ["perch-v2", "--iters", "2", "--repeats", "2", "--budget", "300"],
+     360),
+)
+
+
+def _bench_records(name: str, lines: list) -> list:
+    """The measurement records in a tool's output lines."""
+    if name == "torch_bench":
+        return list(lines[-1]["extra"]["measurements"].values())
+    if name == "torch_bench_int8":
+        return [r for fam in lines[-1].values()
+                for r in fam["measurements"].values()]
+    return [ln for ln in lines[:-1] if "oom" not in ln]
+
+
+def bench_tools_phase():
+    """``scripts/torch_bench.py`` (v2.4 bf16, Perch v2 int8, v3.0 bf16,
+    e2e on one 60 s file and the native v2.4 backbone in bf16),
+    ``scripts/torch_bench_int8.py`` (v2.4) and
+    ``scripts/torch_sweep_int8_batch.py`` (Perch v2 int8 at batch 32 and
+    64), each in a subprocess with its own time limit, on the main paths'
+    cached graphs and scales: each exits 0, names the card, reports
+    positive rates and times, launches its family's front-end kernel (the
+    native backbone none, its stages out in bf16 and its planted faults
+    past its bound) and holds the drift bound. Returns the launch counts
+    of all three."""
+    import torch
+
+    kind = torch.cuda.get_device_name(0)
+    launches: dict = {}
+    for name, env, args, limit in BENCH_TOOLS:
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve().parent / "scripts"
+                                 / f"{name}.py"), *args],
+            capture_output=True, text=True, timeout=limit,
+            env={**os.environ, **env})
+        check(r.returncode == 0, f"bench_tools {name}: exit {r.returncode}\n"
+              f"{r.stdout[-4000:]}\n{r.stderr[-4000:]}")
+        lines = [json.loads(ln) for ln in r.stdout.splitlines() if ln.strip()]
+        records = _bench_records(name, lines)
+        got = {}
+        for rec in records:
+            for kernel, n in rec["launches"].items():
+                got[kernel] = got.get(kernel, 0) + n
+        emit({"phase": "bench_tools", "tool": name, "args": args, **env,
+              "seconds": time.perf_counter() - t0, "launches": got,
+              "last_line": lines[-1]})
+        check(kind in r.stdout, f"bench_tools {name}: no card name")
+        check(records and all(
+            (rec["launches"].get(("conv1d_stft" if rec.get("family") ==
+                                  "perch-v2" else "fused_logmel"), 0) > 0
+             if "planted_fault_drift" not in rec else
+             rec["launches"] == {} and rec["stage_dtypes"] == ["bfloat16"]
+             and rec["planted_fault_drift_min"] > rec["drift_bound"])
+            and rec["x_realtime"] > 0
+            and rec.get("drift", 0.0) <= rec.get("drift_bound",
+                                                 SCORE_DRIFT_BOUND)
+            and all(rec[k] > 0 for k in ("x_realtime_min", "step_ms",
+                                         "device_busy_ms_per_step",
+                                         "kernels_per_step")
+                    if k in rec)
+            for rec in records), f"bench_tools {name}: {records}")
+        if name == "torch_bench":
+            line = lines[-1]
+            check(line["value"] > 0 and line["vs_baseline"] > 0
+                  and line["extra"]["e2e_x_realtime"] > 0,
+                  f"bench_tools torch_bench: {line}")
+        for kernel, n in got.items():
+            launches[kernel] = launches.get(kernel, 0) + n
+    return launches
+
+
 def _tensor_errors(got: dict, want: dict, order: list) -> list:
     """(tensor, max |got - want|, max |want|) over the tensors both hold,
     in execution order (the recorded magnitude scales a bf16 error)."""
@@ -2417,6 +2489,7 @@ def main() -> int:
         launches_gather = stft_gather_phase(onnx24, dev)
         recall_report_phase(onnx24, labels24_path, wavs24[0])
         host_budget_phase()
+        launches_bench = bench_tools_phase()
 
         # -- 5. the exact integer routes at the quantized nodes' shapes ----
         cases, gemms = int8_cases(convs24, mms24, convs_perch)
@@ -2460,6 +2533,7 @@ def main() -> int:
                      launches_accept=launches_accept.get("fused_logmel", 0),
                      launches_cli=launches_cli.get("fused_logmel", 0),
                      launches_gather=launches_gather.get("fused_logmel", 0),
+                     launches_bench=launches_bench.get("fused_logmel", 0),
                      verify={name: {"q99_err": rec["logmel_q99_err"],
                                     "frames_per_block": rec[
                                         "frames_per_block"]["fused_logmel"],
@@ -2488,6 +2562,7 @@ def main() -> int:
                      launches_accept=launches_accept.get("conv1d_stft", 0),
                      launches_cli=launches_cli.get("conv1d_stft", 0),
                      launches_gather=launches_gather.get("conv1d_stft", 0),
+                     launches_bench=launches_bench.get("conv1d_stft", 0),
                      verify={name: {"rel_err": rec["conv_rel_err"],
                                     "frames_per_block": rec[
                                         "frames_per_block"]["conv1d_stft"],

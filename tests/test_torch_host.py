@@ -39,7 +39,8 @@ CHIP_HELPERS = ["tests/torch_op_cases.py", "tests/torch_seq_graphs.py",
 #: The port's tools, run on the card's machine.
 TOOLS = ["scripts/torch_accept_asset.py", "scripts/verify_kernels_cuda.py",
          "scripts/torch_int8_recall_report.py",
-         "scripts/torch_bench_host_budget.py"]
+         "scripts/torch_bench_host_budget.py", "scripts/torch_bench.py",
+         "scripts/torch_bench_int8.py", "scripts/torch_sweep_int8_batch.py"]
 PORT_SOURCES = sorted(
     str(p.relative_to(REPO))
     for p in (REPO / "birda_tpu_torch").rglob("*.py")) + ["chip_smoke.py"] \

@@ -129,8 +129,12 @@ def test_conv_route_is_exact(name, route, kind):
 
 
 # (M, K, N): batch 1 and the tiny widths fall below _int_mm's card limits
-# (M > 16, K and N multiples of 8) and are padded.
-MATMUL_CASES = [(1, 1280, 16), (4, 32, 16), (17, 13, 10), (33, 64, 4)]
+# (M a multiple of 32, K and N multiples of 8) and are padded; 8 x 16 x 240,
+# 17 x 16 x 240 and 40 x 16 x 240 are a v2.4 squeeze-excite product at batch
+# 8, 17 and 40, and 8 x 24 x 384 a v3.0 one at batch 8, which cuBLASLt
+# refused at 17 and 24 rows (ROADMAP C11).
+MATMUL_CASES = [(1, 1280, 16), (4, 32, 16), (17, 13, 10), (33, 64, 4),
+                (8, 16, 240), (17, 16, 240), (40, 16, 240), (8, 24, 384)]
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -146,6 +150,27 @@ def test_matmul_routes_are_exact(m, k, n, kind):
     for got in (plain, card_route):
         assert got.dtype == torch.int32 and got.shape == (m, n)
         assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 23, 24, 25, 32, 33, 64])
+def test_int_mm_rows_are_padded_to_what_cublaslt_takes(m, monkeypatch):
+    """The card's ``torch._int_mm`` gets a multiple of 32 rows, and the
+    product comes back at ``m`` rows (C11)."""
+    seen = []
+    int_mm = torch._int_mm
+
+    def recording(a, b):
+        seen.append(tuple(a.shape))
+        return int_mm(a, b)
+
+    monkeypatch.setattr(torch, "_int_mm", recording)
+    a, b = _operands((m, 16), (16, 240), "random", seed=m)
+    got = tl._int_mm(torch.from_numpy(a), tl.int_mm_weight(
+        torch.from_numpy(b)), 240)
+    rows = seen[0][0]
+    assert rows % 32 == 0 and 0 <= rows - m < 32
+    want = (a.astype(np.float64) @ b.astype(np.float64)).astype(np.int32)
+    assert np.array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("shape,group,strides,pads,want", [

@@ -48,7 +48,8 @@ from birda_tpu_torch.onnx import int8_accuracy as tacc
 from birda_tpu_torch.onnx import lowering as tl
 from birda_tpu_torch.onnx import quantize as tq
 
-SPECS = {"v24": fs.BIRDNET_V24_SPEC, "perch": fs.PERCH_V2_SPEC}
+SPECS = {"v24": fs.BIRDNET_V24_SPEC, "perch": fs.PERCH_V2_SPEC,
+         "v30": fs.BIRDNET_V30_SPEC}
 POLICIES = ["strict", "tolerant", "frontier", "all", "storage"]
 #: The tiny graphs shrink channel counts below the production
 #: min_weight_bytes; 256 quantizes the whole backbone (the JAX package's
@@ -539,7 +540,8 @@ def _zoo_pair(graphs, jax_calib, storage_only, key="v24"):
     kernel enabled, BIRDA_STFT_KERNEL=pallas)."""
     g = graphs[key]
     family = {"v24": ModelFamily.BIRDNET_V24,
-              "perch": ModelFamily.PERCH_V2}[key]
+              "perch": ModelFamily.PERCH_V2,
+              "v30": ModelFamily.BIRDNET_V30}[key]
     contract = contract_for(family)
     labels = zoo.synthetic_labels(contract.num_classes)
     from birda_tpu.models.contracts import contract_for as jax_contract_for
