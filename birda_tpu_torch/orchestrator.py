@@ -9,10 +9,11 @@ with the same names; the host code it calls is the port's own copy of the
 JAX package's modules (same subpackage and module names).
 
 All four precisions run: fp32, bf16, and the calibrated ``mixed`` and
-``int8`` (:mod:`birda_tpu_torch.onnx.quantize`), whose non-quantized ops
-compute in bf16 on the card and, as the card's test double, on the CPU too.
-So do the secondary heads: the geomodel range filter (queried once on the
-run's device), the bat two-stage head (``--bat``) and regional slicing
+``int8`` (:mod:`birda_tpu_torch.onnx.quantize`). As in the JAX package,
+bf16 and the non-quantized ops of int8 and mixed compute in bf16 on the
+card and in fp32 on the CPU (:func:`compute_dtype_for`). So do the
+secondary heads: the geomodel range filter (queried once on the run's
+device), the bat two-stage head (``--bat``) and regional slicing
 (``--region-labels``); the native model family behind ``synthetic:tiny``
 and ``synthetic:full`` model paths (float32 whatever the precision, as in
 the JAX package); ``--jobs N`` per-file worker threads over one shared
@@ -232,18 +233,31 @@ def resolve_decode_workers(options: AnalyzeOptions) -> int:
     return max(1, min(4, os.cpu_count() or 1))
 
 
+def compute_dtype_for(precision: str, backend: str):
+    """The compute dtype of ``precision``'s float ops on ``backend`` (the
+    backend a run actually takes, ``cuda`` or ``cpu``): the JAX package's
+    rule (``birda_tpu/orchestrator.py:278-294`` and ``:342``). bf16, and
+    the non-quantized ops of int8 and mixed, compute in bf16 on the card
+    and in fp32 on the CPU; fp32 in fp32 everywhere. ``None`` is fp32."""
+    import torch
+
+    if precision == "fp32" or backend == "cpu":
+        return None
+    return torch.bfloat16
+
+
 def load_model_graph(mc: ModelConfig, name: str,
                      precision: str = "fp32", device: str = "auto",
                      calibration_audio: Optional[Path] = None) -> LoadedModel:
     """Turn a config entry into a runnable graph: an ``.onnx`` file through
-    the torch lowering, in any of :data:`PRECISIONS` (on any backend: on the
-    CPU the fused front-end takes its plain version). ``device`` is the
-    requested backend, on which int8/mixed calibrate. The ``synthetic:``
-    scheme builds the native architecture with deterministic weights —
-    ``synthetic:tiny`` (or ``synthetic:``) for CI-sized runs,
-    ``synthetic:full`` for benchmarking — in float32 at any precision."""
-    import torch
-
+    the torch lowering, in any of :data:`PRECISIONS`, at the compute dtype
+    :func:`compute_dtype_for` gives on the backend ``device`` resolves to
+    (so ``--cpu --precision bf16|int8|mixed`` computes its float ops in
+    fp32, as the JAX package does). int8/mixed calibrate on that backend.
+    The ``synthetic:`` scheme builds the native architecture with
+    deterministic weights — ``synthetic:tiny`` (or ``synthetic:``) for
+    CI-sized runs, ``synthetic:full`` for benchmarking — in float32 at any
+    precision."""
     if precision not in PRECISIONS:
         raise ConfigValidation(
             f"precision must be one of {', '.join(PRECISIONS)} "
@@ -257,14 +271,23 @@ def load_model_graph(mc: ModelConfig, name: str,
         return tiny_model(family)
     validate_model_config(name, mc)
     labels = read_geomodel_labels(mc.labels)  # one label per line
+    compute = None
+    if precision != "fp32":
+        from .inference.backend import select_backend
+
+        backend = select_backend(device)[1].actual
+        if backend == "cpu":
+            logger.warning(
+                "--precision %s requested but the actual backend is CPU; "
+                "non-quantized compute runs fp32 there", precision)
+        compute = compute_dtype_for(precision, backend)
     try:
         if precision in ("int8", "mixed"):
             return _load_int8_model(mc, family, labels, calibration_audio,
-                                    device=device,
+                                    device=device, compute_dtype=compute,
                                     storage_only=precision == "mixed")
-        return onnx_model(
-            mc.path, contracts.contract_for(family), labels,
-            dtype=torch.bfloat16 if precision == "bf16" else None)
+        return onnx_model(mc.path, contracts.contract_for(family), labels,
+                          dtype=compute)
     except BirdaError:
         raise
     except Exception as e:  # noqa: BLE001 — parse/lowering errors -> typed
@@ -274,6 +297,7 @@ def load_model_graph(mc: ModelConfig, name: str,
 
 def _load_int8_model(mc: ModelConfig, family, labels: list[str],
                      calibration_audio: Optional[Path], device: str = "auto",
+                     compute_dtype=None,
                      storage_only: bool = False) -> LoadedModel:
     """Calibrated int8 execution of a float graph (the TensorRT-int8 engine
     analogue; the reference caches those engines,
@@ -285,14 +309,11 @@ def _load_int8_model(mc: ModelConfig, family, labels: list[str],
     Explicit ``--calibration-audio`` always recalibrates. Calibration runs
     fp32 on the requested backend's device.
 
-    The non-quantized ops compute in bf16 on every backend: the CPU route
-    is the card route's test double (the JAX package computes them in fp32
-    on the CPU, where XLA lacks a bf16 dot). ``storage_only=True`` is
+    The non-quantized ops compute in ``compute_dtype`` (``None``: fp32;
+    :func:`compute_dtype_for` gives it). ``storage_only=True`` is
     ``--precision mixed``: no node quantizes; the calibration scales only
     back int8 *storage* of the large boundary streams.
     """
-    import torch
-
     from .inference.backend import select_backend
     from .models.zoo import onnx_model_int8
     from .onnx.quantize import cached_calibration, calibrate
@@ -315,7 +336,7 @@ def _load_int8_model(mc: ModelConfig, family, labels: list[str],
                 "loaded from cache" if from_cache else "computed",
                 time.monotonic() - t0)
     return onnx_model_int8(data, contract, labels, calib,
-                           compute_dtype=torch.bfloat16,
+                           compute_dtype=compute_dtype,
                            storage_only=storage_only)
 
 

@@ -648,7 +648,9 @@ def measure_e2e(batch: int, seconds: float, n_files: int, seed: int,
     bf16, CSV out at a confidence of 0.1; a warm-up analyze of the first
     file, then one timed invocation over all of them. Every CSV must be
     there and non-empty, the exit code 0, and ``fused_logmel`` launched on
-    the card."""
+    the card (on the CPU, ``analyze`` computes bf16 in fp32, as the JAX
+    package does, and no front end is fused: ``compute_dtype_for``)."""
+    from birda_tpu_torch import orchestrator
     from birda_tpu_torch.config.types import Config, ModelType
     from birda_tpu_torch.models.zoo import synthetic_labels
     from birda_tpu_torch.onnx import fullscale as fs
@@ -705,8 +707,9 @@ def measure_e2e(batch: int, seconds: float, n_files: int, seed: int,
                                     f"{n_files} files")
     rec.update({"x_realtime": n_files * seconds / dt, "seconds": dt,
                 **counts})
-    if not rec["routes"].get("fused_logmel:kernel") or (
-            dev.type == "cuda" and not rec["launches"].get("fused_logmel")):
+    fused = orchestrator.compute_dtype_for("bf16", dev.type) is not None
+    if fused and (not rec["routes"].get("fused_logmel:kernel") or (
+            dev.type == "cuda" and not rec["launches"].get("fused_logmel"))):
         raise MeasurementFailed(f"e2e: fused_logmel did not run: {counts}")
     return rec
 

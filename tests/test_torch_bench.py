@@ -294,7 +294,19 @@ def test_sweep_takes_its_grid_from_batches(monkeypatch):
 
 # -- torch_bench: e2e, the result line, the failure contract -------------------------
 
-def test_tiny_e2e_writes_its_csvs():
+def _card_compute_rule(monkeypatch):
+    """``analyze`` on the CPU at the card's compute dtypes (bf16), so that
+    the CPU run stands in for the card's: its own rule is the JAX
+    package's, fp32 on the CPU."""
+    from birda_tpu_torch import orchestrator
+
+    rule = orchestrator.compute_dtype_for
+    monkeypatch.setattr(orchestrator, "compute_dtype_for",
+                        lambda precision, backend: rule(precision, "cuda"))
+
+
+def test_tiny_e2e_writes_its_csvs(monkeypatch):
+    _card_compute_rule(monkeypatch)
     rc, lines = _run(tb.main, [*SMALL, "--only", "e2e", "--e2e-seconds", "9",
                                "--e2e-files", "2"])
     assert rc == 0 and len(lines) == 1
@@ -306,6 +318,17 @@ def test_tiny_e2e_writes_its_csvs():
     assert rec["routes"]["fused_logmel:kernel"] > 0
     # no headline selected: no value
     assert line["value"] is None and line["vs_baseline"] is None
+
+
+def test_cpu_e2e_computes_in_fp32_as_jax_does():
+    """On the CPU ``analyze`` computes bf16 in fp32 (the JAX package's
+    rule), so the e2e run fuses no front end, and passes without it."""
+    rc, lines = _run(tb.main, [*SMALL, "--only", "e2e", "--e2e-seconds", "9",
+                               "--e2e-files", "2"])
+    assert rc == 0 and len(lines) == 1
+    rec = lines[0]["extra"]["measurements"]["e2e"]
+    assert rec["files"] == 2 and all(b > 0 for b in rec["csv_bytes"])
+    assert not rec["routes"].get("fused_logmel:kernel")
 
 
 def test_result_line_has_bench_pys_shape_and_keys():

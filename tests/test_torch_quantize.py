@@ -37,6 +37,7 @@ import jax
 import jax.numpy as jnp
 
 import fixtures_onnx as fo
+import torch_cpu_precision_parity as cpp
 from fixtures_audio import write_wav
 from birda_tpu.onnx import fullscale as fs
 from birda_tpu.onnx import int8_accuracy as jacc
@@ -152,6 +153,37 @@ def test_percentile_is_jnp_percentile():
     for q in (0.0, 37.5, 99.9, 100.0):
         assert float(tq._percentile(x, q)) == pytest.approx(
             float(jnp.percentile(jnp.asarray(x.numpy()), q)), rel=1e-6)
+
+
+@pytest.mark.parametrize("x_shape,w_shape,group,stride", [
+    ((2, 48, 33, 17), (48, 1, 3, 3), 48, (1, 1)),
+    ((2, 48, 33, 17), (48, 1, 5, 5), 48, (2, 2)),
+    ((2, 64, 20, 9), (64, 4, 3, 3), 16, (1, 1)),
+    ((1, 1040, 6, 5), (40, 1040, 1, 1), 1, (1, 1)),
+])
+def test_exact_grouped_int8_conv_is_xlas_int8_conv(x_shape, w_shape, group,
+                                                   stride):
+    """The full-depth comparison (``tests/torch_int8_fullscale.py``)
+    evaluates the JAX package's grouped int8 convs in float32, exactly: the
+    same int32 as XLA's int8 convolution, at the extremes of the int8
+    range; a dense conv keeps XLA's route."""
+    import torch_int8_fullscale as full
+    from jax import lax
+
+    rng = np.random.default_rng(4)
+    x = rng.integers(-127, 128, x_shape, dtype=np.int8)
+    w = rng.integers(-127, 128, w_shape, dtype=np.int8)
+    x[0, 0], w[0] = 127, -127
+    x, w = jnp.asarray(x), jnp.asarray(w)
+    kw = dict(window_strides=stride, padding=((1, 1), (2, 2)),
+              feature_group_count=group, preferred_element_type=jnp.int32)
+    conv = lax.conv_general_dilated
+    want = conv(x, w, **kw)
+    with full.exact_grouped_int8_conv():
+        got = lax.conv_general_dilated(x, w, **kw)
+    assert lax.conv_general_dilated is conv
+    assert got.dtype == want.dtype == jnp.int32
+    assert np.array_equal(np.asarray(got), np.asarray(want))
 
 
 # -- selection and weights ------------------------------------------------------
@@ -570,6 +602,130 @@ def test_precision_info_matches_jax(graphs, jax_calib, monkeypatch, key,
     assert set(got.precision_info) == set(want.precision_info)
 
 
+def _model_configs(model_file, labels_file, model_type):
+    from birda_tpu.config.types import ModelConfig as JaxModelConfig
+    from birda_tpu.config.types import ModelType as JaxModelType
+
+    from birda_tpu_torch.config.types import ModelConfig, ModelType
+
+    return (JaxModelConfig(path=model_file, labels=labels_file,
+                           model_type=JaxModelType(model_type)),
+            ModelConfig(path=model_file, labels=labels_file,
+                        model_type=ModelType(model_type)))
+
+
+@pytest.mark.parametrize("precision", ["bf16", "int8", "mixed"])
+@pytest.mark.parametrize("key", list(SPECS))
+def test_precision_info_matches_jax_on_the_cpu_route(home, graphs, key,
+                                                     precision):
+    """``load_model_graph`` on the CPU backend in both packages: the same
+    precision report (bf16 computes fp32 there and reports none; int8 and
+    mixed report their selection from the same cached scales, which the
+    JAX package computes and the port reads)."""
+    from birda_tpu.orchestrator import load_model_graph as jax_load
+
+    from birda_tpu_torch.orchestrator import load_model_graph
+
+    jmc, tmc = _model_configs(
+        *cpp.write_inputs(home, key, graphs[key])[:3])
+    want = jax_load(jmc, "m", precision=precision, backend="cpu")
+    got = load_model_graph(tmc, "m", precision=precision, device="cpu")
+    assert got.precision_info == want.precision_info
+    assert got.source == want.source
+    if precision == "bf16":
+        assert got.precision_info is None
+    else:
+        assert got.precision_info["mode"] == precision
+
+
+def _card_double(monkeypatch):
+    """The backend selector doubled to answer ``cuda`` with the CPU as its
+    device, so that the card's branch of the rule is taken without a
+    card."""
+    from birda_tpu_torch.inference import backend
+
+    real = backend.select_backend
+
+    def select(requested="auto"):
+        devices, status = real("cpu")
+        return devices, backend.BackendStatus(requested, "cuda")
+
+    monkeypatch.setattr(backend, "select_backend", select)
+
+
+@pytest.mark.parametrize("precision,cpu,card", [
+    ("fp32", None, None),
+    ("bf16", None, torch.bfloat16),
+    ("int8", None, torch.bfloat16),
+    ("mixed", None, torch.bfloat16),
+])
+def test_compute_dtype_rule_for_cpu_and_card(precision, cpu, card):
+    """The JAX package's rule (``birda_tpu/orchestrator.py:278-294``,
+    ``:342``) as a plain function of the precision and the backend a run
+    takes: the card computes bf16 (and the non-quantized ops of int8 and
+    mixed) in bf16, the CPU in fp32."""
+    from birda_tpu_torch.orchestrator import compute_dtype_for
+
+    assert compute_dtype_for(precision, "cpu") is cpu
+    assert compute_dtype_for(precision, "cuda") is card
+
+
+@pytest.mark.parametrize("precision", ["bf16", "int8", "mixed"])
+def test_load_model_graph_takes_the_backend_it_runs_on(home, graphs,
+                                                       monkeypatch,
+                                                       precision, caplog):
+    """The rule is applied to the backend the device resolves to: on the
+    CPU the float params stay float32 and the JAX package's warning is
+    logged; with the backend selector answering ``cuda`` they are bf16,
+    as on the card, and nothing is logged."""
+    from birda_tpu_torch.orchestrator import load_model_graph
+
+    _, tmc = _model_configs(
+        *cpp.write_inputs(home, "v24", graphs["v24"])[:3])
+
+    def float_dtypes(model):
+        params = model.bind_device(torch.device("cpu"))
+        return {t.dtype for t in params.values() if t.is_floating_point()}
+
+    with caplog.at_level("WARNING", logger="birda_tpu_torch.orchestrator"):
+        on_cpu = load_model_graph(tmc, "m", precision=precision,
+                                  device="cpu")
+    assert float_dtypes(on_cpu) == {torch.float32}
+    assert (f"--precision {precision} requested but the actual backend is "
+            "CPU; non-quantized compute runs fp32 there") in caplog.text
+    caplog.clear()
+    _card_double(monkeypatch)
+    with caplog.at_level("WARNING", logger="birda_tpu_torch.orchestrator"):
+        on_card = load_model_graph(tmc, "m", precision=precision,
+                                   device="gpu")
+    assert float_dtypes(on_card) == {torch.bfloat16}
+    assert "actual backend is CPU" not in caplog.text
+    assert on_card.precision_info["mode"] == precision
+
+
+@pytest.mark.parametrize("precision,bound", [("bf16", 1e-3), ("int8", 5e-3),
+                                             ("mixed", 5e-3)])
+@pytest.mark.parametrize("key", ["v24", "v30"])
+def test_analyze_cpu_precision_matches_jax(home, graphs, key, precision,
+                                          bound):
+    """``analyze --cpu --precision P`` in both packages on the same file
+    (``tests/torch_cpu_precision_parity.py``): the same windows with the
+    same species, each confidence within 1e-3 for bf16 (fp32 compute on the
+    CPU in both) and within 5e-3 for int8 and mixed
+    (``test_scores_match_jax``'s ``int8-fp32`` bound; the JAX run computes
+    and caches the scales, the port's run reads them)."""
+    (jname, want), (tname, got) = cpp.analyze_both(home, key, graphs[key],
+                                                   precision)
+    assert tname == jname
+    assert want and len(got) == len(want)
+    jw, tw = cpp.windows(want), cpp.windows(got)
+    assert tw.keys() == jw.keys()
+    for w, species in jw.items():
+        assert tw[w].keys() == species.keys(), w
+        for name, conf in species.items():
+            assert abs(tw[w][name] - conf) <= bound, (w, name)
+
+
 def test_boundary_policy_env_knob(graphs, jax_calib, monkeypatch):
     """BIRDA_INT8_BOUNDARY re-tunes the storage policy of int8 (not mixed),
     reported through precision_info, as in the JAX package."""
@@ -695,9 +851,9 @@ def _assert_tracks(want, got, tol=0.05):
 def test_int8_detections_track_fp32_through_analyze(home, tiny_setup):
     """`--precision int8` end to end: scales cached on the first run and
     loaded on the second (identical CSV rows), detections within 0.05 of
-    the fp32 run (JAX: TestEndToEndParity; there the CPU computes int8's
-    float ops in fp32, here in bf16, so a near-tie at the top-k cut may
-    swap)."""
+    the fp32 run (JAX: TestEndToEndParity). On the CPU both packages
+    compute int8's float ops in fp32; a species kept by one run only still
+    has to lie within 0.05 of the other's lowest kept confidence."""
     cfg, audio = tiny_setup
     rows_f = _run(home, cfg, audio, "fp32", "out_f")
     rows_q = _run(home, cfg, audio, "int8", "out_q")
